@@ -1,0 +1,187 @@
+"""pSp GradualStyleEncoder (E_W+), NCHW.
+
+Counterpart of ``fm3dgan/models/psp_encoder.py`` with the reference pSp
+state-dict names (``input_layer``, ``body.{i}``, ``styles.{j}``,
+``latlayer1/2``): an IR-SE backbone with FPN taps at three levels,
+align_corners bilinear lateral fusion, and n_styles GradualStyleBlocks split
+coarse/middle/fine at indices 3/7 -> [N, n_styles, style_dim].  The IR / IR-SE
+recognition Backbone waits for the ArcFace/evaluation slice.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from fm3dgan_torch.models._common import bn, conv, prelu
+from fm3dgan_torch.nn.layers import EqualLinear
+
+
+def get_blocks(num_layers: int, width: int = 64) -> List[List[Tuple[int, int, int]]]:
+    """(in_channel, depth, stride) units per stage; ``width`` scales depths."""
+
+    def block(in_channel, depth, num_units, stride=2):
+        in_channel = in_channel * width // 64
+        depth = depth * width // 64
+        return [(in_channel, depth, stride)] + [(depth, depth, 1) for _ in range(num_units - 1)]
+
+    units = {
+        18: (2, 2, 2, 2),
+        50: (3, 4, 14, 3),
+        100: (3, 13, 30, 3),
+        152: (3, 8, 36, 3),
+    }
+    if num_layers not in units:
+        raise ValueError(f"num_layers must be in (18, 50, 100, 152), got {num_layers}")
+    n = units[num_layers]
+    return [
+        block(64, 64, n[0]),
+        block(64, 128, n[1]),
+        block(128, 256, n[2]),
+        block(256, 512, n[3]),
+    ]
+
+
+class SEModule(nn.Module):
+    """Squeeze-excitation; the reduced width has a floor of 1 channel."""
+
+    def __init__(self, channels: int, reduction: int = 16, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        mid = max(1, channels // reduction)
+        self.fc1 = nn.Conv2d(channels, mid, 1, bias=False)
+        self.fc2 = nn.Conv2d(mid, channels, 1, bias=False)
+        self.dtype = dtype
+
+    def forward(self, x):
+        s = x.mean(dim=(2, 3), keepdim=True)
+        s = F.relu(conv(self.fc1, s, self.dtype))
+        s = conv(self.fc2, s, self.dtype)
+        return x * torch.sigmoid(s)
+
+
+class BottleneckIRSE(nn.Module):
+    def __init__(self, in_channel: int, depth: int, stride: int, use_se: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.stride = stride
+        self.dtype = dtype
+        if in_channel == depth:
+            self.shortcut_layer = None  # MaxPool2d(1, stride): a strided subsample
+        else:
+            self.shortcut_layer = nn.Sequential(
+                nn.Conv2d(in_channel, depth, 1, stride, bias=False), nn.BatchNorm2d(depth),
+            )
+        layers = [
+            nn.BatchNorm2d(in_channel),
+            nn.Conv2d(in_channel, depth, 3, 1, 1, bias=False),
+            nn.PReLU(depth),
+            nn.Conv2d(depth, depth, 3, stride, 1, bias=False),
+            nn.BatchNorm2d(depth),
+        ]
+        if use_se:
+            layers.append(SEModule(depth, 16, dtype))
+        self.res_layer = nn.Sequential(*layers)
+
+    def forward(self, x):
+        if self.shortcut_layer is None:
+            shortcut = x[:, :, :: self.stride, :: self.stride]
+        else:
+            shortcut = bn(self.shortcut_layer[1], conv(self.shortcut_layer[0], x, self.dtype))
+        r = self.res_layer
+        res = bn(r[0], x)
+        res = prelu(r[2], conv(r[1], res, self.dtype))
+        res = bn(r[4], conv(r[3], res, self.dtype))
+        if len(r) > 5:
+            res = r[5](res)
+        return res + shortcut
+
+
+class GradualStyleBlock(nn.Module):
+    """log2(spatial) stride-2 convs with LeakyReLU(0.01), then EqualLinear."""
+
+    def __init__(self, in_c: int, out_c: int, spatial: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.out_c = out_c
+        self.dtype = dtype
+        mods = []
+        for i in range(int(math.log2(spatial))):
+            mods += [nn.Conv2d(in_c if i == 0 else out_c, out_c, 3, 2, 1), nn.LeakyReLU(0.01)]
+        self.convs = nn.Sequential(*mods)
+        self.linear = EqualLinear(out_c, out_c, dtype=dtype)
+
+    def forward(self, x):
+        for m in self.convs[::2]:
+            x = F.leaky_relu(conv(m, x, self.dtype), 0.01)
+        return self.linear(x.reshape(x.shape[0], self.out_c))
+
+
+class GradualStyleEncoder(nn.Module):
+    """E_W+: photo [N, 3, H, W] -> [N, n_styles, style_dim] W+ codes."""
+
+    def __init__(
+        self,
+        num_layers: int = 18,
+        mode: str = "ir_se",
+        n_styles: int = 14,
+        input_nc: int = 3,
+        coarse_ind: int = 3,
+        middle_ind: int = 7,
+        input_size: int = 256,
+        width: int = 64,
+        style_dim: int = 512,
+        dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        if num_layers not in (18, 50):
+            raise ValueError("FPN tap indices are defined for 18 and 50 layers")
+        self.dtype = dtype
+        self.coarse_ind = coarse_ind
+        self.middle_ind = middle_ind
+        self.taps = {18: (3, 5, 7), 50: (6, 20, 23)}[num_layers]
+        self.input_layer = nn.Sequential(
+            nn.Conv2d(input_nc, width, 3, 1, 1, bias=False), nn.BatchNorm2d(width), nn.PReLU(width),
+        )
+        use_se = mode == "ir_se"
+        self.body = nn.ModuleList(
+            BottleneckIRSE(cin, depth, stride, use_se, dtype)
+            for stage in get_blocks(num_layers, width)
+            for (cin, depth, stride) in stage
+        )
+        fpn_c = 8 * width
+        self.styles = nn.ModuleList()
+        # As in the JAX module, the coarse and middle blocks always exist, so
+        # n_styles < middle_ind still yields middle_ind codes.
+        for j in range(max(n_styles, middle_ind)):
+            spatial = input_size // (16 if j < coarse_ind else 8 if j < middle_ind else 4)
+            self.styles.append(GradualStyleBlock(fpn_c, style_dim, spatial, dtype))
+        self.latlayer1 = nn.Conv2d(4 * width, fpn_c, 1)
+        self.latlayer2 = nn.Conv2d(2 * width, fpn_c, 1)
+
+    def forward(self, x):
+        il = self.input_layer
+        x = prelu(il[2], bn(il[1], conv(il[0], x, self.dtype)))
+        feats = {}
+        for i, unit in enumerate(self.body):
+            x = unit(x)
+            if i in self.taps:
+                feats[i] = x
+        c1, c2, c3 = (feats[t] for t in self.taps)
+
+        latents = [self.styles[j](c3) for j in range(self.coarse_ind)]
+        lat1 = conv(self.latlayer1, c2, self.dtype)
+        p2 = _upsample_align_corners(c3, lat1) + lat1
+        latents += [self.styles[j](p2) for j in range(self.coarse_ind, self.middle_ind)]
+        lat2 = conv(self.latlayer2, c1, self.dtype)
+        p1 = _upsample_align_corners(p2, lat2) + lat2
+        latents += [self.styles[j](p1) for j in range(self.middle_ind, len(self.styles))]
+        return torch.stack(latents, dim=1)
+
+
+def _upsample_align_corners(x, like):
+    if x.shape[2:] == like.shape[2:]:
+        return x
+    return F.interpolate(x, size=like.shape[2:], mode="bilinear", align_corners=True)

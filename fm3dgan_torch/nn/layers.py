@@ -1,0 +1,140 @@
+"""StyleGAN2 building blocks, NCHW, equalized learning rate.
+
+Counterparts of ``fm3dgan/nn/layers.py``.  Parameters keep the reference's
+torch layout and names (Linear ``[out, in]``, conv OIHW).  ``dtype`` is the
+compute type; parameters stay float32 and are cast at use, as the JAX modules
+cast theirs.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from fm3dgan_torch.ops import blur, fused_leaky_relu, make_kernel, upsample2x
+
+
+class PixelNorm(nn.Module):
+    """x * rsqrt(mean(x^2, dim 1) + 1e-8)."""
+
+    def forward(self, x):
+        return x * torch.rsqrt(torch.mean(x * x, dim=1, keepdim=True) + 1e-8)
+
+
+class EqualLinear(nn.Module):
+    """Linear with runtime weight scale (1/sqrt(in)) * lr_mul."""
+
+    def __init__(
+        self,
+        in_dim: int,
+        out_dim: int,
+        bias: bool = True,
+        bias_init: float = 0.0,
+        lr_mul: float = 1.0,
+        activation: Optional[str] = None,
+        dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        self.weight = nn.Parameter(torch.randn(out_dim, in_dim) / lr_mul)
+        self.bias = nn.Parameter(torch.full((out_dim,), float(bias_init))) if bias else None
+        self.scale = (1.0 / math.sqrt(in_dim)) * lr_mul
+        self.lr_mul = lr_mul
+        self.activation = activation
+        self.dtype = dtype
+
+    def forward(self, x):
+        out = F.linear(x.to(self.dtype), (self.weight * self.scale).to(self.dtype))
+        if self.activation == "fused_lrelu":
+            return fused_leaky_relu(out, None if self.bias is None else self.bias * self.lr_mul)
+        if self.bias is not None:
+            out = out + (self.bias * self.lr_mul).to(out.dtype)
+        return out
+
+
+class EqualConv2d(nn.Module):
+    """Conv with runtime 1/sqrt(fan_in) weight scaling."""
+
+    def __init__(
+        self,
+        in_channel: int,
+        out_channel: int,
+        kernel_size: int,
+        stride: int = 1,
+        padding: int = 0,
+        bias: bool = True,
+        dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        self.weight = nn.Parameter(
+            torch.randn(out_channel, in_channel, kernel_size, kernel_size)
+        )
+        self.bias = nn.Parameter(torch.zeros(out_channel)) if bias else None
+        self.scale = 1.0 / math.sqrt(in_channel * kernel_size**2)
+        self.stride = stride
+        self.padding = padding
+        self.dtype = dtype
+
+    def forward(self, x):
+        out = F.conv2d(
+            x.to(self.dtype),
+            (self.weight * self.scale).to(self.dtype),
+            stride=self.stride,
+            padding=self.padding,
+        )
+        if self.bias is not None:
+            out = out + self.bias.to(out.dtype).reshape(1, -1, 1, 1)
+        return out
+
+
+class FusedLeakyReLU(nn.Module):
+    """Per-channel bias + LeakyReLU + sqrt(2) scale (CUDA kernel on the card)."""
+
+    def __init__(self, channel: int, negative_slope: float = 0.2, scale: float = math.sqrt(2.0)):
+        super().__init__()
+        self.bias = nn.Parameter(torch.zeros(channel))
+        self.negative_slope = negative_slope
+        self.scale = scale
+
+    def forward(self, x):
+        return fused_leaky_relu(x, self.bias, self.negative_slope, self.scale)
+
+
+class Blur(nn.Module):
+    """FIR blur; the kernel is a host constant, scaled by factor**2 after an
+    upsampling transposed conv (``fm3dgan/nn/layers.py:130-140``)."""
+
+    def __init__(self, kernel: Sequence[int] = (1, 3, 3, 1), pad: Tuple[int, int] = (0, 0),
+                 upsample_factor: int = 1):
+        super().__init__()
+        k = make_kernel(kernel)
+        if upsample_factor > 1:
+            k = k * (upsample_factor**2)
+        self.kernel = k
+        self.pad = tuple(pad)
+
+    def forward(self, x):
+        return blur(x, self.kernel, self.pad)
+
+
+class Upsample(nn.Module):
+    """FIR 2x upsample with a separable kernel: outer(k, k) / sum**2 * 4,
+    pads (2, 1) for k = 4 (``fm3dgan/ops/upfirdn2d.py:211-216``)."""
+
+    def __init__(self, kernel: Sequence[int] = (1, 3, 3, 1), factor: int = 2):
+        super().__init__()
+        if factor != 2:
+            raise ValueError("Upsample supports factor 2 only")
+        k = np.asarray(kernel, np.float32)
+        if k.ndim != 1:
+            raise ValueError("Upsample takes 1-D taps (a separable kernel)")
+        self.kernel_1d = k / k.sum() * factor
+        p = k.size - factor
+        self.pad = ((p + 1) // 2 + factor - 1, p // 2)
+
+    def forward(self, x):
+        return upsample2x(x, self.kernel_1d, self.pad)

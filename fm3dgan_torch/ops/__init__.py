@@ -1,0 +1,50 @@
+"""Ops of the port: plain PyTorch versions and the CUDA kernel wrappers."""
+
+from typing import Dict
+
+from fm3dgan_torch.ops._build import build_all, plain_versions
+from fm3dgan_torch.ops.fused_act import fused_leaky_relu, fused_leaky_relu_plain
+from fm3dgan_torch.ops.upfirdn2d import (
+    blur,
+    blur_plain,
+    downsample2d,
+    make_kernel,
+    upfirdn2d,
+    upsample2d,
+    upsample2x,
+    upsample2x_plain,
+)
+
+KERNEL_WRAPPERS = {
+    "blur": blur,
+    "upsample2x": upsample2x,
+    "fused_leaky_relu": fused_leaky_relu,
+}
+
+
+def reset_launches() -> None:
+    for fn in KERNEL_WRAPPERS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
+
+
+__all__ = [
+    "KERNEL_WRAPPERS",
+    "blur",
+    "blur_plain",
+    "build_all",
+    "downsample2d",
+    "fused_leaky_relu",
+    "fused_leaky_relu_plain",
+    "launch_counts",
+    "make_kernel",
+    "plain_versions",
+    "reset_launches",
+    "upfirdn2d",
+    "upsample2d",
+    "upsample2x",
+    "upsample2x_plain",
+]

@@ -1,0 +1,156 @@
+"""Composition layer: (photo, render) -> edited image.
+
+Counterpart of ``fm3dgan/pipeline/forward.py``'s production inference
+``forward_3_encoder``: tensor = E_Tsr(photo or render), W = E_W(render),
+W+ = E_W+(photo); latent[i] = W * W+[:, i] on ``sliced_layer`` indices, else
+W; the generator runs on the latent with the encoded tensor as its input.
+
+The public functions take and return NHWC in [-1, 1], as the JAX ones do; the
+models run NCHW inside.  Inference only: ``train=True`` (BatchNorm updates)
+waits for the training slice.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Sequence
+
+import torch
+import torch.nn as nn
+
+from fm3dgan_torch.models.generator import Generator
+from fm3dgan_torch.models.psp_encoder import GradualStyleEncoder
+from fm3dgan_torch.models.resnet_encoder import ResNet18Encoder
+
+MODULATION_ENCODING = ("Render Image", "Photo Image")
+
+
+def resolve_device(device=None) -> torch.device:
+    """``cuda`` unless the caller asks for another device; no silent CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "fm3dgan_torch runs on a CUDA device and none is available; "
+                "pass device='cpu' to run on the CPU"
+            )
+        device = "cuda"
+    return torch.device(device)
+
+
+class FaceManipulator(nn.Module):
+    """Module bundle for the 3-encoder manipulation pipeline."""
+
+    def __init__(self, generator: Generator, e_tsr: ResNet18Encoder, e_w: ResNet18Encoder,
+                 e_w_plus: GradualStyleEncoder, input_size: int = 256):
+        super().__init__()
+        self.generator = generator
+        self.e_tsr = e_tsr
+        self.e_w = e_w
+        self.e_w_plus = e_w_plus
+        self.input_size = input_size
+
+    @classmethod
+    def create(
+        cls,
+        size: int = 256,
+        style_dim: int = 512,
+        n_mlp: int = 8,
+        channel_multiplier: int = 2,
+        w_plus_layers: int = 18,
+        input_size: int = 256,
+        width_mult: float = 1.0,
+        dtype: torch.dtype = torch.float32,
+        device=None,
+        seed: int = 0,
+    ) -> "FaceManipulator":
+        """Same arguments and checks as the JAX ``FaceManipulator.create``,
+        plus ``device`` (default ``cuda``) and ``seed`` for the random
+        initial weights.  Returns the bundle in eval mode on ``device``."""
+        device = resolve_device(device)
+        n_styles = 2 * int(math.log2(size)) - 2
+        enc_width = int(64 * width_mult)
+        if not (enc_width >= 1 and 64 * width_mult == enc_width):
+            raise ValueError(f"width_mult {width_mult} must give an integer encoder width")
+        if style_dim != 8 * enc_width:
+            raise ValueError(
+                f"style_dim {style_dim} must equal the encoder output width "
+                f"{8 * enc_width} (= 8 * 64*width_mult)"
+            )
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            models = cls(
+                generator=Generator(size=size, style_dim=style_dim, n_mlp=n_mlp,
+                                    channel_multiplier=channel_multiplier,
+                                    width_mult=width_mult, dtype=dtype),
+                e_tsr=ResNet18Encoder(tensor_encoding=True, width=enc_width, dtype=dtype),
+                e_w=ResNet18Encoder(tensor_encoding=False, width=enc_width, dtype=dtype),
+                e_w_plus=GradualStyleEncoder(num_layers=w_plus_layers, n_styles=n_styles,
+                                             input_size=input_size, width=enc_width,
+                                             style_dim=style_dim, dtype=dtype),
+                input_size=input_size,
+            )
+        return models.to(device).eval()
+
+    @property
+    def device(self) -> torch.device:
+        return self.generator.input.input.device
+
+    def load_variables(self, state_dicts: Dict[str, Dict[str, torch.Tensor]]) -> None:
+        """Load {'g', 'e_tsr', 'e_w', 'e_w_plus'} state dicts (reference layout,
+        e.g. from :func:`fm3dgan_torch.compat.from_jax`)."""
+        for key, module in (("g", self.generator), ("e_tsr", self.e_tsr),
+                            ("e_w", self.e_w), ("e_w_plus", self.e_w_plus)):
+            module.load_state_dict(state_dicts[key])
+
+
+def _combine_w_wplus(w: torch.Tensor, w_plus: torch.Tensor,
+                     sliced_layer: Optional[Sequence[int]]) -> torch.Tensor:
+    """latent[:, i] = W * W+[:, i] for i in sliced_layer, else W."""
+    n_latent = w_plus.shape[1]
+    chosen = set(range(n_latent) if sliced_layer is None else sliced_layer)
+    mask = torch.tensor([i in chosen for i in range(n_latent)], device=w.device)[None, :, None]
+    w_b = w[:, None, :]
+    return torch.where(mask, w_b * w_plus, w_b)
+
+
+def forward_3_encoder(
+    models: FaceManipulator,
+    photo: torch.Tensor,
+    render: torch.Tensor,
+    *,
+    tsr_encode: str = "Render Image",
+    sliced_layer: Optional[Sequence[int]] = None,
+    use_tanh: bool = False,
+    noise_generator: Optional[torch.Generator] = None,
+    return_latent: bool = False,
+):
+    """(photo, render) [N, H, W, 3] in [-1, 1] -> edited image [N, H, W, 3].
+
+    Noise comes from ``noise_generator`` when one is given, else from the
+    generator's fixed buffers.  Returns the image, or (image, latent) with
+    ``return_latent``."""
+    if tsr_encode not in MODULATION_ENCODING:
+        raise ValueError(f"tsr_encode must be one of {MODULATION_ENCODING}")
+    device = models.device
+    with torch.inference_mode():
+        photo = photo.to(device).permute(0, 3, 1, 2).contiguous()
+        render = render.to(device).permute(0, 3, 1, 2).contiguous()
+        tsr_input = photo if tsr_encode == "Photo Image" else render
+        encoded_tensor = models.e_tsr(tsr_input)
+        encoded_w = models.e_w(render)
+        encoded_w_plus = models.e_w_plus(photo)
+        latent = _combine_w_wplus(encoded_w, encoded_w_plus, sliced_layer)
+        image, latent_out = models.generator(
+            input_is_latent=True,
+            latent_styles=[latent],
+            external_input_tensor=encoded_tensor,
+            randomize_noise=noise_generator is not None,
+            noise_generator=noise_generator,
+            return_latent=True,
+        )
+        if use_tanh:
+            image = torch.tanh(image)
+        image = image.permute(0, 2, 3, 1).contiguous()
+    if return_latent:
+        return image, latent_out
+    return image

@@ -1,0 +1,107 @@
+"""Guards of the port's boundaries: fm3dgan_torch and chip_smoke.py import
+no JAX and nothing of fm3dgan, refuse to run without a card unless asked for
+the CPU, and load reference-layout weights unchanged."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from fm3dgan.compat import torch_port
+from fm3dgan_torch.compat import from_jax
+from fm3dgan_torch.models import Generator, GradualStyleEncoder, ResNet18Encoder
+from fm3dgan_torch.pipeline import FaceManipulator
+from test_compat import _synth_generator_sd
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "fm3dgan")
+
+
+def _port_sources():
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "fm3dgan_torch")):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(paths)
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import sys\n"
+        "import fm3dgan_torch, fm3dgan_torch.ops, fm3dgan_torch.nn, fm3dgan_torch.models\n"
+        "import fm3dgan_torch.pipeline, fm3dgan_torch.compat\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, REPO))
+def test_port_source_imports_no_jax(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, f"{path}:{node.lineno} imports {name}"
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: chip_smoke.py would run in full")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, capture_output=True,
+                          text=True, timeout=60)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+
+
+def test_create_without_device_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FaceManipulator.create(size=16, input_size=128, width_mult=1 / 16, style_dim=32)
+
+
+def _randomized(sd, seed):
+    rng = np.random.RandomState(seed)
+    return {k: rng.randn(*np.shape(v)).astype(np.float32) for k, v in sd.items()}
+
+
+def _assert_same(got, want):
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(want[k]), err_msg=k)
+
+
+def test_reference_generator_state_dict_round_trip():
+    """Reference layout -> convert_generator -> from_jax gives it back, and
+    loads into the port's Generator unchanged."""
+    sd = _randomized(_synth_generator_sd(), 0)
+    back = from_jax({"g": torch_port.convert_generator(sd)})["g"]
+    _assert_same({k: v.numpy() for k, v in back.items()}, sd)
+    Generator(size=16, style_dim=64, n_mlp=2).load_state_dict(back)
+
+
+@pytest.mark.parametrize("which", ["e_tsr", "e_w_plus"])
+def test_encoder_state_dict_round_trip(which):
+    """The port's own state dict -> the JAX converter -> from_jax."""
+    if which == "e_tsr":
+        module, convert = ResNet18Encoder(width=8), torch_port.convert_resnet18_encoder
+    else:
+        module = GradualStyleEncoder(n_styles=10, input_size=64, width=16, style_dim=128)
+        convert = torch_port.convert_psp_encoder
+    sd = {k: v.numpy() for k, v in module.state_dict().items()}
+    floats = _randomized({k: v for k, v in sd.items() if "num_batches" not in k}, 1)
+    sd.update(floats)
+    back = from_jax({which: convert(sd)})[which]
+    _assert_same({k: v.numpy() for k, v in back.items()}, sd)
+    module.load_state_dict(back)
