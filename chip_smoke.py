@@ -3,17 +3,30 @@
     python3 chip_smoke.py [--out results.json]
 
 Builds the hand-written CUDA kernels of ``fm3dgan_torch`` from
-``fm3dgan_torch/ops/csrc`` and then, in order:
+``fm3dgan_torch/ops/csrc`` and then, in order (TF32 off throughout):
 
-1. kernel phase: each kernel at every shape the 256 px forward gives it
-   (batch 8, float32 and bfloat16) against its plain PyTorch version on the
-   card, with its time, the plain version's time, one PyTorch library call's
-   time where one computes the same function, and its memory/compute bound;
+1. kernel phase: each kernel at every shape the 256 px inference forward
+   gives it (batch 8) and at every shape the training iteration gives the
+   new kernels and the blur adjoint (batch 16), float32 and bfloat16,
+   against its plain PyTorch version on the card, with its time, the plain
+   version's time, one PyTorch library call's time where one computes the
+   same function, and its memory/compute bound;
 2. path phase: ``FaceManipulator.create(size=256, input_size=256)`` with
    seeded random weights runs ``forward_3_encoder`` at batch 8 in float32
-   (TF32 off) through the kernels and through the plain versions, checks the
-   output and the launch counts, repeats in bfloat16, checks a small
-   configuration on the card against the CPU, and times batch 32.
+   through the kernels and through the plain versions, checks the output
+   and the launch counts, repeats in bfloat16, checks a small configuration
+   on the card against the CPU, and times batch 32;
+3. gradient phase: on a full-width 256 px ``Trainer`` state, the gradients
+   of one G step (GAN + L1 + face-regional, fixed noise) and of one R1 step
+   at batch 16, through the kernels and under ``plain_versions()``, each
+   parameter tensor of G and D within 1e-4 of its largest gradient, of the
+   encoders within 1e-3;
+4. training phase: that ``Trainer`` runs iterations 0-5 on seeded uint8
+   batches of 16 in float32 (reconstruction, DS with D_edit, extreme DS,
+   R1, PPL), printing flags, losses, ms and launches per iteration, and
+   checks that the losses are finite, every partition, g_ema and the
+   BatchNorm statistics moved, the PPL mean is positive and all five
+   kernels ran; then 2 iterations in bfloat16.
 
 Prints one JSON line per measurement, the card's name and power limit, a
 ``{"kernels": [...]}`` summary, and last ``{"ok": true, "device": ...}``.
@@ -24,7 +37,9 @@ does not build or launch, or when any check fails.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -37,6 +52,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 BATCH = 8
 TIMED_BATCH = 32
+TRAIN_BATCH = 16
+GRAD_BATCH = 16
+TRAIN_ITERS = 6
+BF16_ITERS = 2
 
 # (C, R): blur input [N, C, 2R+1, 2R+1] after each upsampling transposed conv.
 BLUR_SHAPES = [(512, 4), (512, 8), (512, 16), (512, 32), (256, 64), (128, 128)]
@@ -45,6 +64,15 @@ UP2_SHAPES = [4, 8, 16, 32, 64, 128]
 # (C, R, launches per forward): every StyledConv's output [N, C, R, R].
 ACT_SHAPES = [(512, 4, 1), (512, 8, 2), (512, 16, 2), (512, 32, 2), (512, 64, 2),
               (256, 128, 2), (128, 256, 2)]
+# Training shapes at batch 16.  The fused activation's backward runs on
+# every activation output [C, R] of D at 256 px (from-RGB, each ResBlock's
+# conv1 [C_in, R] and conv2 [C_out, R/2], final_conv, and final_linear.0,
+# [16, 512], written R = 0); G's StyledConv outputs are among these shapes.
+ACT_BWD_SHAPES = [(128, 256), (256, 128), (512, 64), (512, 32), (512, 16), (512, 8), (512, 4),
+                  (512, 0)]
+# D's downsampling blurs: ResBlock input [C_in, R], pads (2, 2) before the
+# 3x3 conv and (1, 1) before the 1x1 skip.
+D_BLUR_SHAPES = [(128, 256), (256, 128), (512, 64), (512, 32), (512, 16), (512, 8)]
 
 KERNEL_INFO = {
     "blur": dict(
@@ -56,8 +84,15 @@ KERNEL_INFO = {
     "fused_leaky_relu": dict(
         route="cuda", source="fm3dgan_torch/ops/csrc/fused_act.cu",
         replaces="fm3dgan/ops/pallas/fused_act_kernel.py:48"),
+    "fused_leaky_relu_bwd": dict(
+        route="cuda", source="fm3dgan_torch/ops/csrc/fused_act.cu",
+        replaces="fm3dgan/ops/pallas/fused_act_kernel.py:67"),
+    "downsample2x": dict(
+        route="cuda", source="fm3dgan_torch/ops/csrc/upfirdn2d.cu",
+        replaces="fm3dgan/ops/pallas/upfirdn2d_kernel.py:477 (mode down2)"),
 }
-EXPECTED_LAUNCHES = {"blur": 6, "upsample2x": 6, "fused_leaky_relu": 13}
+EXPECTED_LAUNCHES = {"blur": 6, "upsample2x": 6, "fused_leaky_relu": 13,
+                     "fused_leaky_relu_bwd": 0, "downsample2x": 0}
 
 
 def emit(obj) -> None:
@@ -160,6 +195,79 @@ def kernel_phase(ops):
     return records
 
 
+def _dtname(dtype) -> str:
+    return str(dtype).split(".")[1]
+
+
+def _training_record(kernel, x, dtype, got, ref32, fns, in_bytes, out_bytes, flops):
+    """Check one training-shape launch against its plain version and time
+    the kernel, the plain version and the library call (None: no single
+    PyTorch call computes the function)."""
+    kernel_fn, plain_fn, lib_fn = fns
+    rec = dict(kernel=kernel, what="training", shape=list(x.shape), dtype=_dtname(dtype),
+               launches_per_forward=1, **compare(got, ref32, dtype))
+    rec["kernel_ms"] = cuda_ms(kernel_fn, iters=20)
+    rec["plain_ms"] = cuda_ms(plain_fn, iters=20)
+    rec["library_ms"] = None if lib_fn is None else cuda_ms(lib_fn, iters=20)
+    rec["bound_ms"], rec["bound_by"] = bound(in_bytes, out_bytes, flops)
+    emit(rec)
+    require(rec["ok"], f"{kernel} {rec['shape']} {dtype}: {rec['max_abs_diff']}")
+    return rec
+
+
+def training_kernel_phase(ops):
+    """K2 at D's and G's activation shapes, K5 at the ToRGB skip's adjoint
+    shapes, and K3 at D's blur shapes and at every blur adjoint, batch 16."""
+    records = []
+    k2d = ops.make_kernel([1, 3, 3, 1])
+    k1d = [0.25, 0.75, 0.75, 0.25]
+    kflip = k1d[::-1]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rnd = lambda *shape: torch.randn(*shape, device="cuda", generator=gen)  # noqa: E731
+    b = TRAIN_BATCH
+    for dtype in (torch.float32, torch.bfloat16):
+        esize = torch.finfo(dtype).bits // 8
+        for c, r in ACT_BWD_SHAPES:
+            shape = (b, c, r, r) if r else (b, c)
+            g, out = rnd(*shape).to(dtype), rnd(*shape).to(dtype)
+            n = g.numel()
+            records.append(_training_record(
+                "fused_leaky_relu_bwd", g, dtype, ops.fused_leaky_relu_bwd(g, out),
+                ops.fused_leaky_relu_bwd_plain(g.float(), out),
+                (lambda: ops.fused_leaky_relu_bwd(g, out),
+                 lambda: ops.fused_leaky_relu_bwd_plain(g, out), None),
+                2 * n * esize, n * esize, n))
+        for r in UP2_SHAPES:  # the adjoint of the ToRGB skip's up2: [b, 3, 2R, 2R] -> R
+            x = rnd(b, 3, 2 * r, 2 * r).to(dtype)
+            got = ops.downsample2x(x, kflip, (1, 1))
+            wlib = torch.flip(torch.outer(torch.tensor(kflip), torch.tensor(kflip)), (0, 1))
+            wlib = wlib.to("cuda", dtype).expand(3, 1, 4, 4)
+            records.append(_training_record(
+                "downsample2x", x, dtype, got, ops.downsample2x_plain(x.float(), kflip, (1, 1)),
+                (lambda: ops.downsample2x(x, kflip, (1, 1)),
+                 lambda: ops.downsample2x_plain(x, kflip, (1, 1)),
+                 lambda: F.conv2d(x, wlib, stride=2, padding=1, groups=3)),
+                x.numel() * esize, got.numel() * esize, got.numel() * 16 * 2))
+        blur_cases = []
+        for c, r in D_BLUR_SHAPES:
+            blur_cases += [((c, r), k2d, 2), ((c, r), k2d, 1),  # D forward: 3x3 conv, 1x1 skip
+                           ((c, r + 1), k2d, 1), ((c, r - 1), k2d, 2)]  # their adjoints
+        blur_cases += [((c, 2 * r), k2d * 4.0, 2) for c, r in BLUR_SHAPES]  # G up-blur adjoint
+        for (c, r), k, p in blur_cases:
+            x = rnd(b, c, r, r).to(dtype)
+            got = ops.blur(x, k, (p, p))
+            wlib = torch.flip(torch.as_tensor(k, device="cuda"), (0, 1)).expand(c, 1, 4, 4).to(dtype)
+            records.append(_training_record(
+                "blur", x, dtype, got, ops.blur_plain(x.float(), k, (p, p)),
+                (lambda: ops.blur(x, k, (p, p)), lambda: ops.blur_plain(x, k, (p, p)),
+                 lambda: F.conv2d(x, wlib, padding=p, groups=c)),
+                x.numel() * esize, got.numel() * esize, got.numel() * 16 * 2))
+            records[-1]["pad"] = [p, p]
+        del x, g, out
+        torch.cuda.empty_cache()
+    return records
+
+
 def _inputs(batch, size, seed):
     g = torch.Generator().manual_seed(seed)
     photo = torch.rand(batch, size, size, 3, generator=g) * 2 - 1
@@ -247,21 +355,151 @@ def path_phase(ops, pipeline):
     return out
 
 
-def summary(records, launches):
+def _train_inputs(batch, seed, ds_flag=False):
+    """Seeded uint8 NHWC batches at 256 px, paired as the JAX data path pairs
+    them: the reference is the photo itself for reconstruction, the other
+    photo of each pair for dual supervision.  The top quarter of each render
+    is background (0 -> -1) so the face-regional mask has both values."""
+    g = torch.Generator().manual_seed(seed)
+    photo, render = (torch.randint(0, 256, (batch, 256, 256, 3), generator=g, dtype=torch.uint8)
+                     for _ in range(2))
+    render[:, :64] = 0
+    swap = torch.arange(batch).reshape(-1, 2).flip(1).reshape(-1)
+    return photo, render, photo[swap] if ds_flag else photo
+
+
+def gradient_phase(ops, train, trainer):
+    """One G step (GAN + L1 + face-regional, DS branch with D_edit) and one R1
+    step on the same state with fixed noise, through the kernels and through
+    the plain versions.  Each parameter tensor of G and D agrees within 1e-4
+    of its largest gradient, each encoder tensor within 1e-3, plus 1e-6 of
+    its partition's largest gradient (gradients that are zero in exact
+    arithmetic, a bias right ahead of a train-mode BatchNorm, carry rounding
+    residue only).  The encoders' bar is wider because their gradients pass
+    through chains of train-mode BatchNorm that amplify rounding: the
+    kernels' own outputs differ from the plain versions' by 0 to 1.4e-6, yet
+    the encoders' gradients differ by up to 1.4e-4 of their largest."""
+    steps, st, cfg = train.steps, trainer.state, trainer.config
+    photo, render, ref = (steps.prepare_batch(a, "cuda")
+                          for a in _train_inputs(GRAD_BATCH, 11, ds_flag=True))
+    torch.backends.cudnn.deterministic = True
+
+    def run():
+        g, _ = steps.g_step_grads(st, cfg, photo, render, ref, use_edit=True, ds_flag=True,
+                                  extreme_ds_flag=False)
+        r1, _ = steps.d_reg_step_grads(st, cfg, ref, use_edit=False)
+        return {"g_step": g, "r1": r1}
+
+    ops.reset_launches()
+    got = run()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    with ops.plain_versions():
+        want = run()
+    torch.cuda.synchronize()
+    torch.backends.cudnn.deterministic = False
+    worst = {"g_and_d": (0.0, ""), "encoders": (0.0, "")}
+    n, residue, over, fails = 0, 0, [], []
+    for step, parts in want.items():
+        for part, tensors in parts.items():
+            floor = 1e-6 * max(float(t.abs().max()) for t in tensors.values())
+            for name, w in tensors.items():
+                scale = float(w.abs().max())
+                err = float((got[step][part][name] - w).abs().max())
+                bar = 1e-3 if part.startswith("e_") else 1e-4
+                if err > bar * scale + floor:
+                    fails.append(f"{step} {part}.{name}: |diff| {err} > {bar} * {scale} + {floor}")
+                n += 1
+                if err > 1e-4 * scale:
+                    over.append(f"{step} {part}.{name}")
+                group = "encoders" if part.startswith("e_") else "g_and_d"
+                if scale <= 1e3 * floor:
+                    residue += 1
+                elif err / scale > worst[group][0]:
+                    worst[group] = (err / scale, f"{step} {part}.{name}")
+    rec = dict(phase="gradients", batch=GRAD_BATCH, dtype="float32", tensors=n,
+               residue_tensors=residue, worst_rel_diff=worst, over_1e4_without_floor=over,
+               launches=counts)
+    emit(rec)
+    require(not fails, "; ".join(fails))
+    require(all(v > 0 for v in counts.values()), f"gradient phase launches {counts}")
+    return rec
+
+
+def _snapshot(st):
+    mods = {"d": st.d, "d_edit": st.d_edit, "g": st.models.generator, "e_tsr": st.models.e_tsr,
+            "e_w": st.models.e_w, "e_w_plus": st.models.e_w_plus, "g_ema": st.g_ema}
+    snap = {k: {n: p.detach().clone() for n, p in m.named_parameters()} for k, m in mods.items()}
+    snap["bn_stats"] = {f"{k}.{n}": b.detach().clone() for k in ("e_tsr", "e_w", "e_w_plus")
+                        for n, b in mods[k].named_buffers() if n.endswith(("running_mean", "running_var"))}
+    return snap
+
+
+def training_phase(ops, train, trainer, iters, dtype_name):
+    """``Trainer.train_iteration`` on iterations 0..iters-1; returns the
+    launches of the whole run and per-iteration records."""
+    st = trainer.state
+    before = _snapshot(st) if dtype_name == "float32" else None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    total = {k: 0 for k in ops.KERNEL_WRAPPERS}
+    for i in range(iters):
+        photo, render, ref = _train_inputs(TRAIN_BATCH, 100 + i, trainer.config.is_ds_iter(i))
+        before_i = ops.launch_counts()
+        t0 = time.perf_counter()
+        m = trainer.train_iteration(i, photo, render, ref)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = {k: v - before_i[k] for k, v in ops.launch_counts().items()}
+        losses = {k: float(v) for k, v in m.items() if torch.is_tensor(v)}
+        rec = dict(phase="train", dtype=dtype_name, iteration=i, batch=TRAIN_BATCH,
+                   ds_flag=m["ds_flag"], extreme_ds_flag=m["extreme_ds_flag"],
+                   use_edit=bool(m["ds_flag"] and trainer.config.use_separate_d),
+                   r1_step=i % trainer.config.d_reg_every == 0,
+                   ppl_step=i % trainer.config.g_reg_every == 0,
+                   losses=losses, ms=ms, launches=counts)
+        emit(rec)
+        require(all(math.isfinite(v) for v in losses.values()), f"{dtype_name} iteration {i}: {losses}")
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if before is not None:
+        after = _snapshot(st)
+        for part in before:
+            moved = any(not torch.equal(before[part][n], after[part][n]) for n in before[part])
+            require(moved, f"training did not change {part}")
+        require(float(st.mean_path_length) > 0, f"mean_path_length {float(st.mean_path_length)}")
+        require(all(v > 0 for v in launches.values()), f"training launches {launches}")
+    emit(dict(phase="train_summary", dtype=dtype_name, iterations=iters, batch=TRAIN_BATCH,
+              launches=launches, max_memory_allocated_bytes=peak,
+              mean_path_length=float(st.mean_path_length)))
+    return launches
+
+
+def summary(records, launches, inference_launches):
+    """One line per kernel.  ms, plain_ms, bound_ms and library_ms sum the
+    kernel's float32 kernel-phase records, each inference shape weighted by
+    its launches per batch-8 forward and each training shape (batch 16) by 1.
+    ``launches`` counts the float32 training run, ``launches_inference`` one
+    batch-8 forward."""
     kernels = []
     for name, info in KERNEL_INFO.items():
         recs = [r for r in records if r["kernel"] == name and r["dtype"] == "float32"]
         bf16 = [r for r in records if r["kernel"] == name and r["dtype"] == "bfloat16"]
-        per_fwd = lambda key: sum(r[key] * r["launches_per_forward"] for r in recs)  # noqa: E731
-        lib = None if recs[0]["library_ms"] is None else per_fwd("library_ms")
+        weighted = lambda key: sum(r[key] * r["launches_per_forward"] for r in recs)  # noqa: E731
+        lib = None if all(r["library_ms"] is None for r in recs) else sum(
+            r["library_ms"] * r["launches_per_forward"] for r in recs if r["library_ms"] is not None)
         kernels.append(dict(
             name=name, **info, launches=launches[name],
+            launches_inference=inference_launches[name],
             max_abs_err=max(r["max_abs_diff"] for r in recs),
             max_abs_err_bf16=max(r["max_abs_diff"] for r in bf16),
-            ms=per_fwd("kernel_ms"), plain_ms=per_fwd("plain_ms"), bound_ms=per_fwd("bound_ms"),
+            ms=weighted("kernel_ms"), plain_ms=weighted("plain_ms"), bound_ms=weighted("bound_ms"),
             bound_by="bytes" if all(r["bound_by"] == "bytes" for r in recs) else "operations",
-            library_ms=lib,
-            note=f"sums over one batch-{BATCH} float32 forward's launches",
+            library_ms=lib, shapes=len(recs),
+            note=(f"sums over the float32 kernel-phase records: batch-{BATCH} inference shapes "
+                  f"weighted by launches per forward, batch-{TRAIN_BATCH} training shapes by 1"),
         ))
     return {"kernels": kernels}
 
@@ -274,7 +512,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from fm3dgan_torch import ops, pipeline
+    from fm3dgan_torch import ops, pipeline, train
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -288,13 +526,27 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     emit(dict(phase="build", seconds=ops.build_all()))
-    records = kernel_phase(ops)
+    records = kernel_phase(ops) + training_kernel_phase(ops)
     path = path_phase(ops, pipeline)
-    result = summary(records, path["launches"])
+
+    config = train.TrainConfig()  # the shipped 3-encoder configuration, 256 px, full width
+    trainer = train.Trainer(config, seed=0, device="cuda")
+    grads = gradient_phase(ops, train, trainer)
+    launches = training_phase(ops, train, trainer, TRAIN_ITERS, "float32")
+    del trainer
+    torch.cuda.empty_cache()
+    trainer = train.Trainer(dataclasses.replace(config, compute_dtype="bfloat16"), seed=0,
+                            device="cuda")
+    training_phase(ops, train, trainer, BF16_ITERS, "bfloat16")
+    del trainer
+    torch.cuda.empty_cache()
+
+    result = summary(records, launches, path["launches"])
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump(dict(device=device, records=records, summary=result), f, indent=1)
+            json.dump(dict(device=device, records=records, gradients=grads, summary=result), f,
+                      indent=1)
     print(smi, flush=True)
     emit(result)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """JAX (flax) variables -> the port's state dicts.
 
 The inverse of ``fm3dgan/compat/torch_port.py``'s ``convert_generator``,
-``convert_resnet18_encoder`` and ``convert_psp_encoder``: the output uses the
+``convert_discriminator``, ``convert_resnet18_encoder`` and
+``convert_psp_encoder``: the output uses the
 reference torch key names and layouts, so a reference torch checkpoint and a
 converted JAX tree load into the port alike.
 
@@ -11,6 +12,8 @@ converted JAX tree load into the port alike.
   * flax BatchNorm scale/bias + batch_stats mean/var ->
     weight/bias/running_mean/running_var (+ num_batches_tracked = 0)
   * noise buffers [1, H, W, 1] -> [1, 1, H, W], copied, never regenerated
+  * D ``final_linear0`` [(h, w, c), out] -> [out, (c, h, w)]: the NHWC
+    flatten permutation undone
 
 Inputs are nested mappings of numpy arrays (``jax.device_get`` of the
 variables); outputs are float32 CPU tensors.
@@ -91,6 +94,32 @@ def generator_from_jax(v: Mapping[str, Any]) -> SD:
     return sd
 
 
+def discriminator_from_jax(v: Mapping[str, Any]) -> SD:
+    params = v["params"]
+    sd: SD = {
+        "convs.0.0.weight": _conv(params["from_rgb"]["conv"]["weight"]),
+        "convs.0.1.bias": _t(params["from_rgb"]["activate"]["bias"]),
+    }
+    res = sorted((k for k in params if k.startswith("res_")), key=lambda k: -int(k[4:]))
+    for i, name in enumerate(res, start=1):
+        p = params[name]
+        sd[f"convs.{i}.conv1.0.weight"] = _conv(p["conv1"]["conv"]["weight"])
+        sd[f"convs.{i}.conv1.1.bias"] = _t(p["conv1"]["activate"]["bias"])
+        sd[f"convs.{i}.conv2.1.weight"] = _conv(p["conv2"]["conv"]["weight"])
+        sd[f"convs.{i}.conv2.2.bias"] = _t(p["conv2"]["activate"]["bias"])
+        sd[f"convs.{i}.skip.1.weight"] = _conv(p["skip"]["conv"]["weight"])
+    sd["final_conv.0.weight"] = _conv(params["final_conv"]["conv"]["weight"])
+    sd["final_conv.1.bias"] = _t(params["final_conv"]["activate"]["bias"])
+    w0 = np.transpose(np.asarray(params["final_linear0"]["weight"]), (1, 0))  # [out, (h, w, c)]
+    c = w0.shape[1] // 16
+    w0 = np.transpose(w0.reshape(w0.shape[0], 4, 4, c), (0, 3, 1, 2)).reshape(w0.shape[0], -1)
+    sd["final_linear.0.weight"] = _t(w0)
+    sd["final_linear.0.bias"] = _t(params["final_linear0"]["bias"])
+    sd["final_linear.1.weight"] = _linear(params["final_linear1"]["weight"])
+    sd["final_linear.1.bias"] = _t(params["final_linear1"]["bias"])
+    return sd
+
+
 def resnet18_from_jax(v: Mapping[str, Any]) -> SD:
     params, stats = v["params"], v["batch_stats"]
     sd: SD = {"conv1.weight": _conv(params["conv1"]["kernel"])}
@@ -150,6 +179,8 @@ def psp_from_jax(v: Mapping[str, Any]) -> SD:
 
 _CONVERTERS = {
     "g": generator_from_jax,
+    "d": discriminator_from_jax,
+    "d_edit": discriminator_from_jax,
     "e_tsr": resnet18_from_jax,
     "e_w": resnet18_from_jax,
     "e_w_plus": psp_from_jax,
@@ -157,6 +188,7 @@ _CONVERTERS = {
 
 
 def from_jax(variables_np: Mapping[str, Any]) -> Dict[str, SD]:
-    """{'g', 'e_tsr', 'e_w', 'e_w_plus'} flax variables (numpy leaves) ->
-    state dicts of the same keys, for ``FaceManipulator.load_variables``."""
+    """{'g', 'e_tsr', 'e_w', 'e_w_plus', 'd', 'd_edit'} flax variables (numpy
+    leaves) -> state dicts of the same keys, for
+    ``FaceManipulator.load_variables`` and ``Discriminator.load_state_dict``."""
     return {k: _CONVERTERS[k](v) for k, v in variables_np.items() if k in _CONVERTERS}

@@ -23,11 +23,21 @@ def conv(m: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     )
 
 
-def bn(m: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
-    """Eval-mode BatchNorm from the running statistics."""
-    y = F.batch_norm(
-        x.float(), m.running_mean, m.running_var, m.weight, m.bias, False, 0.0, m.eps
-    )
+FLAX_MOMENTUM = 0.9
+
+
+def bn(m: nn.BatchNorm2d, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    """BatchNorm from the running statistics, or with ``train`` from the
+    batch statistics, updating the running ones in place."""
+    xf = x.float()
+    if not train:
+        y = F.batch_norm(xf, m.running_mean, m.running_var, m.weight, m.bias, False, 0.0, m.eps)
+        return y.to(x.dtype)
+    y = F.batch_norm(xf, None, None, m.weight, m.bias, True, 0.0, m.eps)
+    with torch.no_grad():
+        var, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
+        m.running_mean.mul_(FLAX_MOMENTUM).add_(mean, alpha=1.0 - FLAX_MOMENTUM)
+        m.running_var.mul_(FLAX_MOMENTUM).add_(var, alpha=1.0 - FLAX_MOMENTUM)
     return y.to(x.dtype)
 
 

@@ -86,15 +86,15 @@ class BottleneckIRSE(nn.Module):
             layers.append(SEModule(depth, 16, dtype))
         self.res_layer = nn.Sequential(*layers)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         if self.shortcut_layer is None:
             shortcut = x[:, :, :: self.stride, :: self.stride]
         else:
-            shortcut = bn(self.shortcut_layer[1], conv(self.shortcut_layer[0], x, self.dtype))
+            shortcut = bn(self.shortcut_layer[1], conv(self.shortcut_layer[0], x, self.dtype), train)
         r = self.res_layer
-        res = bn(r[0], x)
+        res = bn(r[0], x, train)
         res = prelu(r[2], conv(r[1], res, self.dtype))
-        res = bn(r[4], conv(r[3], res, self.dtype))
+        res = bn(r[4], conv(r[3], res, self.dtype), train)
         if len(r) > 5:
             res = r[5](res)
         return res + shortcut
@@ -161,12 +161,14 @@ class GradualStyleEncoder(nn.Module):
         self.latlayer1 = nn.Conv2d(4 * width, fpn_c, 1)
         self.latlayer2 = nn.Conv2d(2 * width, fpn_c, 1)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
+        """x: [N, 3, H, W]; ``train`` normalises with batch statistics and
+        updates the running ones."""
         il = self.input_layer
-        x = prelu(il[2], bn(il[1], conv(il[0], x, self.dtype)))
+        x = prelu(il[2], bn(il[1], conv(il[0], x, self.dtype), train))
         feats = {}
         for i, unit in enumerate(self.body):
-            x = unit(x)
+            x = unit(x, train)
             if i in self.taps:
                 feats[i] = x
         c1, c2, c3 = (feats[t] for t in self.taps)

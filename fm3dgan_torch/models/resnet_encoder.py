@@ -7,7 +7,8 @@ state-dict names: BasicBlock [2, 2, 2, 2], the classifier removed.
   [N, 8w, 4, 4], the tensor that replaces the generator's constant input.
 * ``tensor_encoding=False``: global average pool -> [N, 8w] W vector.
 
-BatchNorm runs in eval mode (eps 1e-5; flax momentum 0.9 is torch 0.1).  The
+BatchNorm eps 1e-5; ``forward(x, train=True)`` normalises with the batch
+statistics and updates the running ones (``models/_common.py``).  The
 ``tensor_transform`` head waits for the 2-encoder slice.
 """
 
@@ -36,11 +37,11 @@ class BasicBlock(nn.Module):
             )
         self.dtype = dtype
 
-    def forward(self, x):
-        out = F.relu(bn(self.bn1, conv(self.conv1, x, self.dtype)))
-        out = bn(self.bn2, conv(self.conv2, out, self.dtype))
+    def forward(self, x, train: bool = False):
+        out = F.relu(bn(self.bn1, conv(self.conv1, x, self.dtype), train))
+        out = bn(self.bn2, conv(self.conv2, out, self.dtype), train)
         if self.downsample is not None:
-            identity = bn(self.downsample[1], conv(self.downsample[0], x, self.dtype))
+            identity = bn(self.downsample[1], conv(self.downsample[0], x, self.dtype), train)
         else:
             identity = x
         return F.relu(out + identity)
@@ -66,12 +67,13 @@ class ResNet18Encoder(nn.Module):
             ))
             in_planes = planes
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         """x: [N, 3, H, W] in [-1, 1] -> [N, 8w, 4, 4] or [N, 8w]."""
-        out = F.relu(bn(self.bn1, conv(self.conv1, x, self.dtype)))
+        out = F.relu(bn(self.bn1, conv(self.conv1, x, self.dtype), train))
         out = F.max_pool2d(out, 3, 2, 1)
         for li in range(1, 5):
-            out = getattr(self, f"layer{li}")(out)
+            for block in getattr(self, f"layer{li}"):
+                out = block(out, train)
         if self.tensor_encoding:
             win = max(1, out.shape[2] // 4)
             return F.avg_pool2d(out, win, win)

@@ -1,10 +1,15 @@
 from fm3dgan_torch.nn.layers import (
     Blur,
+    ConvLayer,
+    Downsample,
     EqualConv2d,
     EqualLinear,
     FusedLeakyReLU,
     PixelNorm,
+    ResBlock,
+    ScaledLeakyReLU,
     Upsample,
+    minibatch_stddev,
 )
 from fm3dgan_torch.nn.modulated import (
     ConstantInput,
@@ -17,13 +22,18 @@ from fm3dgan_torch.nn.modulated import (
 __all__ = [
     "Blur",
     "ConstantInput",
+    "ConvLayer",
+    "Downsample",
     "EqualConv2d",
     "EqualLinear",
     "FusedLeakyReLU",
     "ModulatedConv2d",
     "NoiseInjection",
     "PixelNorm",
+    "ResBlock",
+    "ScaledLeakyReLU",
     "StyledConv",
     "ToRGB",
     "Upsample",
+    "minibatch_stddev",
 ]

@@ -1,7 +1,9 @@
 """StyleGAN2 building blocks, NCHW, equalized learning rate.
 
 Counterparts of ``fm3dgan/nn/layers.py``.  Parameters keep the reference's
-torch layout and names (Linear ``[out, in]``, conv OIHW).  ``dtype`` is the
+torch layout and names (Linear ``[out, in]``, conv OIHW; ``ConvLayer`` is an
+``nn.Sequential`` as in the reference, so its keys are ``0.weight``,
+``1.bias`` or, downsampling, ``1.weight``, ``2.bias``).  ``dtype`` is the
 compute type; parameters stay float32 and are cast at use, as the JAX modules
 cast theirs.
 """
@@ -16,7 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from fm3dgan_torch.ops import blur, fused_leaky_relu, make_kernel, upsample2x
+from fm3dgan_torch.ops import blur, downsample2x, fused_leaky_relu, make_kernel, upsample2x
 
 
 class PixelNorm(nn.Module):
@@ -138,3 +140,93 @@ class Upsample(nn.Module):
 
     def forward(self, x):
         return upsample2x(x, self.kernel_1d, self.pad)
+
+
+class ScaledLeakyReLU(nn.Module):
+    """leaky_relu * sqrt(2) (``fm3dgan/nn/layers.py:107-114``)."""
+
+    def __init__(self, negative_slope: float = 0.2):
+        super().__init__()
+        self.negative_slope = negative_slope
+
+    def forward(self, x):
+        return torch.where(x >= 0, x, x * self.negative_slope) * math.sqrt(2.0)
+
+
+class Downsample(nn.Module):
+    """FIR 2x downsample with a separable kernel: outer(k, k) / sum**2, pads
+    ((p+1)//2, p//2) with p = k - 2 (``fm3dgan/ops/upfirdn2d.py``
+    ``downsample2d``)."""
+
+    def __init__(self, kernel: Sequence[int] = (1, 3, 3, 1), factor: int = 2):
+        super().__init__()
+        if factor != 2:
+            raise ValueError("Downsample supports factor 2 only")
+        k = np.asarray(kernel, np.float32)
+        if k.ndim != 1:
+            raise ValueError("Downsample takes 1-D taps (a separable kernel)")
+        self.kernel_1d = k / k.sum()
+        p = k.size - factor
+        self.pad = ((p + 1) // 2, p // 2)
+
+    def forward(self, x):
+        return downsample2x(x, self.kernel_1d, self.pad)
+
+
+class ConvLayer(nn.Sequential):
+    """Discriminator conv block: [Blur ->] EqualConv2d [-> activation].
+
+    With ``downsample`` the blur pads ((p+1)//2, p//2), p = len(blur) - 2 +
+    kernel_size - 1, and the conv runs at stride 2 without padding."""
+
+    def __init__(
+        self,
+        in_channel: int,
+        out_channel: int,
+        kernel_size: int,
+        downsample: bool = False,
+        blur_kernel: Sequence[int] = (1, 3, 3, 1),
+        bias: bool = True,
+        activate: bool = True,
+        dtype: torch.dtype = torch.float32,
+    ):
+        layers = []
+        if downsample:
+            p = (len(blur_kernel) - 2) + (kernel_size - 1)
+            layers.append(Blur(blur_kernel, pad=((p + 1) // 2, p // 2)))
+            stride, padding = 2, 0
+        else:
+            stride, padding = 1, kernel_size // 2
+        layers.append(EqualConv2d(in_channel, out_channel, kernel_size, stride=stride,
+                                  padding=padding, bias=bias and not activate, dtype=dtype))
+        if activate:
+            layers.append(FusedLeakyReLU(out_channel) if bias else ScaledLeakyReLU(0.2))
+        super().__init__(*layers)
+
+
+class ResBlock(nn.Module):
+    """Discriminator residual block, (conv2(conv1(x)) + skip(x)) / sqrt(2)."""
+
+    def __init__(self, in_channel: int, out_channel: int,
+                 blur_kernel: Sequence[int] = (1, 3, 3, 1), dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv1 = ConvLayer(in_channel, in_channel, 3, dtype=dtype)
+        self.conv2 = ConvLayer(in_channel, out_channel, 3, downsample=True,
+                               blur_kernel=blur_kernel, dtype=dtype)
+        self.skip = ConvLayer(in_channel, out_channel, 1, downsample=True, blur_kernel=blur_kernel,
+                              activate=False, bias=False, dtype=dtype)
+
+    def forward(self, x):
+        return (self.conv2(self.conv1(x)) + self.skip(x)) / math.sqrt(2.0)
+
+
+def minibatch_stddev(x: torch.Tensor, group_size: int = 4, num_features: int = 1) -> torch.Tensor:
+    """Append the per-group mean feature stddev as extra channels (NCHW): the
+    reference's group reshape [G, N/G, F, C/F, H, W], biased variance, +1e-8."""
+    n, c, h, w = x.shape
+    group = min(n, group_size)
+    y = x.reshape(group, -1, num_features, c // num_features, h, w)
+    stddev = torch.sqrt(y.var(0, unbiased=False) + 1e-8)
+    stddev = stddev.mean(dim=(2, 3, 4), keepdim=True).squeeze(2)  # [N/G, F, 1, 1]
+    stddev = stddev.repeat(group, 1, h, w)
+    return torch.cat([x, stddev.to(x.dtype)], dim=1)

@@ -3,11 +3,18 @@
 from typing import Dict
 
 from fm3dgan_torch.ops._build import build_all, plain_versions
-from fm3dgan_torch.ops.fused_act import fused_leaky_relu, fused_leaky_relu_plain
+from fm3dgan_torch.ops.fused_act import (
+    fused_leaky_relu,
+    fused_leaky_relu_bwd,
+    fused_leaky_relu_bwd_plain,
+    fused_leaky_relu_plain,
+)
 from fm3dgan_torch.ops.upfirdn2d import (
     blur,
     blur_plain,
     downsample2d,
+    downsample2x,
+    downsample2x_plain,
     make_kernel,
     upfirdn2d,
     upsample2d,
@@ -19,6 +26,8 @@ KERNEL_WRAPPERS = {
     "blur": blur,
     "upsample2x": upsample2x,
     "fused_leaky_relu": fused_leaky_relu,
+    "fused_leaky_relu_bwd": fused_leaky_relu_bwd,
+    "downsample2x": downsample2x,
 }
 
 
@@ -37,7 +46,11 @@ __all__ = [
     "blur_plain",
     "build_all",
     "downsample2d",
+    "downsample2x",
+    "downsample2x_plain",
     "fused_leaky_relu",
+    "fused_leaky_relu_bwd",
+    "fused_leaky_relu_bwd_plain",
     "fused_leaky_relu_plain",
     "launch_counts",
     "make_kernel",

@@ -43,12 +43,18 @@ SIGNATURES = {
         "fm_blur": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
         # x, y, kcol(host), krow(host), dtype, NC, H, W, k, p0, stream
         "fm_upsample2x": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        # x, y, kcol(host), krow(host), dtype, NC, H, W, k, p0, p1, stream
+        "fm_downsample2x": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     },
     "fused_act": {
         # x, bias (or NULL), y, dtype, total, C, HW, slope, scale, stream
         "fm_fused_leaky_relu": [
             _P, _P, _P, _I, ctypes.c_longlong, _I, _I,
             ctypes.c_float, ctypes.c_float, _P,
+        ],
+        # g, out, dx, dtype, total, slope, scale, stream
+        "fm_fused_leaky_relu_bwd": [
+            _P, _P, _P, _I, ctypes.c_longlong, ctypes.c_float, ctypes.c_float, _P,
         ],
     },
 }
@@ -169,16 +175,9 @@ def dtype_code(x) -> int:
 
 def check_input(x, what: str) -> None:
     """Raise unless ``x`` is a tensor the CUDA kernels take."""
-    import torch
-
     dtype_code(x)
     if not x.is_contiguous():
         raise ValueError(f"{what}: input must be a contiguous NCHW tensor")
-    if x.requires_grad and torch.is_grad_enabled():
-        raise RuntimeError(
-            f"{what}: the CUDA kernel has no backward yet; run the forward "
-            "under torch.inference_mode()"
-        )
 
 
 def stream_of(x) -> int:

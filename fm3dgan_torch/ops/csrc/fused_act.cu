@@ -2,12 +2,20 @@
 //     y = scale * leaky_relu(x + bias[c], slope),  c = (i / HW) % C.
 // Plain C interface, loaded through ctypes (see ../_build.py).
 //
-// Replaces the TPU kernel fm3dgan/ops/pallas/fused_act_kernel.py `_call_fwd`
-// (:48, reached through `_fused_leaky_relu_p` :87 and
-// `fused_leaky_relu_pallas_maybe` :106), the forward of every StyledConv.
+// fm_fused_leaky_relu replaces the TPU kernel
+// fm3dgan/ops/pallas/fused_act_kernel.py `_call_fwd` (:48, reached through
+// `_fused_leaky_relu_p` :87 and `fused_leaky_relu_pallas_maybe` :106), the
+// forward of every StyledConv and every D ConvLayer.
+//
+// fm_fused_leaky_relu_bwd replaces `_call_bwd` (:67, reached through the VJP
+// `_p_bwd` :96): dx = g * (out >= 0 ? scale : slope * scale), from the saved
+// OUTPUT only (scale > 0 keeps the sign of x + bias).  dbias = sum(dx) stays
+// outside the kernel, as in the JAX VJP (:99).  It also serves the double
+// backward (R1, PPL), which is the same map applied to ggx + ggb.
 //
 // Bound on an H100: memory.  Three flops per element against one read and one
-// write, so the floor is the bytes over 3.35 TB/s.  The design reads each
+// write (two reads and one write for the backward), so the floor is the
+// bytes over 3.35 TB/s.  The design reads each
 // element once and writes it once with 16-byte vector accesses (4 fp32 or 8
 // bf16 per thread) when HW is a multiple of the vector width and both
 // pointers are 16-byte aligned; then every vector lies in one channel and
@@ -64,6 +72,36 @@ __global__ void fused_lrelu_vec(const uint4* __restrict__ x,
   }
 }
 
+template <typename T>
+__global__ void fused_lrelu_bwd_scalar(const T* __restrict__ g,
+                                       const T* __restrict__ out,
+                                       T* __restrict__ dx, int64_t total,
+                                       float pos, float neg) {
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < total;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    dx[i] = from_f<T>(to_f(g[i]) * (to_f(out[i]) >= 0.f ? pos : neg));
+  }
+}
+
+template <typename T, int VEC>
+__global__ void fused_lrelu_bwd_vec(const uint4* __restrict__ g,
+                                    const uint4* __restrict__ out,
+                                    uint4* __restrict__ dx, int64_t nvec,
+                                    float pos, float neg) {
+  for (int64_t v = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; v < nvec;
+       v += (int64_t)gridDim.x * blockDim.x) {
+    uint4 gv = g[v];
+    uint4 ov = out[v];
+    uint4 r;
+    const T* pg = reinterpret_cast<const T*>(&gv);
+    const T* po = reinterpret_cast<const T*>(&ov);
+    T* pr = reinterpret_cast<T*>(&r);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) pr[e] = from_f<T>(to_f(pg[e]) * (to_f(po[e]) >= 0.f ? pos : neg));
+    dx[v] = r;
+  }
+}
+
 inline int grid_for(int64_t total, int block) {
   int64_t g = (total + block - 1) / block;
   const int64_t cap = 132 * 32;
@@ -89,6 +127,26 @@ void launch(const void* x, const void* bias, void* y, int64_t total, int C,
   }
 }
 
+template <typename T>
+void launch_bwd(const void* g, const void* out, void* dx, int64_t total,
+                float slope, float scale, cudaStream_t s) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int block = 256;
+  const bool aligned = (reinterpret_cast<uintptr_t>(g) % 16 == 0) &&
+                       (reinterpret_cast<uintptr_t>(out) % 16 == 0) &&
+                       (reinterpret_cast<uintptr_t>(dx) % 16 == 0);
+  if (aligned && total % VEC == 0) {
+    const int64_t nvec = total / VEC;
+    fused_lrelu_bwd_vec<T, VEC><<<grid_for(nvec, block), block, 0, s>>>(
+        static_cast<const uint4*>(g), static_cast<const uint4*>(out),
+        static_cast<uint4*>(dx), nvec, scale, slope * scale);
+  } else {
+    fused_lrelu_bwd_scalar<T><<<grid_for(total, block), block, 0, s>>>(
+        static_cast<const T*>(g), static_cast<const T*>(out),
+        static_cast<T*>(dx), total, scale, slope * scale);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -103,6 +161,21 @@ int fm_fused_leaky_relu(const void* x, const void* bias, void* y, int dtype,
     launch<float>(x, bias, y, total, C, HW, slope, scale, s);
   } else if (dtype == 1) {
     launch<__nv_bfloat16>(x, bias, y, total, C, HW, slope, scale, s);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// g, out, dx: total elements of one dtype (0 = float32, 1 = bfloat16).
+int fm_fused_leaky_relu_bwd(const void* g, const void* out, void* dx,
+                            int dtype, long long total, float slope,
+                            float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    launch_bwd<float>(g, out, dx, total, slope, scale, s);
+  } else if (dtype == 1) {
+    launch_bwd<__nv_bfloat16>(g, out, dx, total, slope, scale, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

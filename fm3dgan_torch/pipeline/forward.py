@@ -6,8 +6,8 @@ W+ = E_W+(photo); latent[i] = W * W+[:, i] on ``sliced_layer`` indices, else
 W; the generator runs on the latent with the encoded tensor as its input.
 
 The public functions take and return NHWC in [-1, 1], as the JAX ones do; the
-models run NCHW inside.  Inference only: ``train=True`` (BatchNorm updates)
-waits for the training slice.
+models run NCHW inside.  Inference only; the training forward (BatchNorm on
+batch statistics) is ``fm3dgan_torch.train.steps.forward_full``.
 """
 
 from __future__ import annotations

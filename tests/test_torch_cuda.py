@@ -14,6 +14,7 @@ import torch
 
 from fm3dgan_torch import ops
 from fm3dgan_torch.pipeline import FaceManipulator, forward_3_encoder
+from fm3dgan_torch.train import TrainConfig, Trainer, steps
 
 K4 = ops.make_kernel([1, 3, 3, 1])
 UP_TAPS = (0.25, 0.75, 0.75, 0.25)
@@ -51,10 +52,19 @@ def test_kernels_match_plain(cuda_device, dtype):
     x3 = torch.randn(2, 3, 9, 7, device=cuda_device, generator=g).to(dtype)
     for pad in ((2, 1), (1, 2), (0, 3)):
         _check(ops.upsample2x(x3, UP_TAPS, pad), ops.upsample2x_plain(x3.float(), UP_TAPS, pad), dtype)
+    x6 = torch.randn(2, 3, 10, 10, device=cuda_device, generator=g).to(dtype)
+    for pad in ((1, 1), (2, 1), (0, 0), (2, -1)):
+        _check(ops.downsample2x(x6, UP_TAPS, pad), ops.downsample2x_plain(x6.float(), UP_TAPS, pad), dtype)
+    _check(ops.downsample2x(x, UP_TAPS, (1, 1)), ops.downsample2x_plain(x.float(), UP_TAPS, (1, 1)), dtype)
     b = torch.randn(12, device=cuda_device, generator=g)
     for xs in (x, x[:, :, :16, :16].contiguous(), torch.randn(5, 12, device=cuda_device).to(dtype)):
         _check(ops.fused_leaky_relu(xs, b), ops.fused_leaky_relu_plain(xs.float(), b.to(dtype).float()), dtype)
         _check(ops.fused_leaky_relu(xs), ops.fused_leaky_relu_plain(xs.float()), dtype)
+        gr = torch.randn(xs.shape, device=cuda_device, generator=g).to(dtype)
+        out = ops.fused_leaky_relu(xs, b)
+        _check(ops.fused_leaky_relu_bwd(gr, out), ops.fused_leaky_relu_bwd_plain(gr.float(), out), dtype)
+    odd = torch.randn(3, 5, 7, device=cuda_device, generator=g).to(dtype)  # no 16-byte vectors
+    _check(ops.fused_leaky_relu_bwd(odd, -odd), ops.fused_leaky_relu_bwd_plain(odd.float(), -odd), dtype)
 
 
 @pytest.mark.gpu
@@ -68,8 +78,49 @@ def test_kernels_raise_on_what_they_do_not_take(cuda_device):
         ops.blur(x, np.ones((9, 9)), (1, 1))  # kernel > 8x8
     with pytest.raises(TypeError):
         ops.fused_leaky_relu(x.half())
-    with pytest.raises(RuntimeError):
-        ops.fused_leaky_relu(x.clone().requires_grad_())
+    with pytest.raises(ValueError):
+        ops.downsample2x(x, UP_TAPS, (-6, 0))  # empty output
+    with pytest.raises(ValueError):
+        ops.fused_leaky_relu_bwd(x, x[:, :2].contiguous())  # shapes differ
+
+
+def _first_and_second_order(fn, x, params):
+    """d<y, w>/dx, and the gradient of |d<y, w>/dx|^2 w.r.t. x and params."""
+    x = x.detach().requires_grad_(True)
+    y = fn(x, *params)
+    w = torch.linspace(-1, 1, y.numel(), device=y.device).reshape(y.shape).to(y.dtype)
+    (gx,) = torch.autograd.grad((y * w).sum(), x, create_graph=True)
+    second = torch.autograd.grad(gx.float().square().sum(), [x, *params], allow_unused=True)
+    return [gx] + [torch.zeros_like(v) if s is None else s for v, s in zip([x, *params], second)]
+
+
+@pytest.mark.gpu
+def test_gradients_flow_through_kernels_and_match_plain(cuda_device):
+    """First- and second-order gradients through each kernel's Function on the
+    card match the same Functions run on the plain versions, and launch the
+    forward and backward kernels."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.randn(2, 12, 17, 17, device=cuda_device, generator=g)
+    x3 = torch.randn(2, 3, 8, 8, device=cuda_device, generator=g)
+    bias = torch.randn(12, device=cuda_device, generator=g).requires_grad_(True)
+    # A smooth map before the activation so the second order is not zero.
+    act = lambda t, b: ops.fused_leaky_relu(t * t, b)  # noqa: E731
+    cases = [
+        (act, x, [bias], ("fused_leaky_relu", "fused_leaky_relu_bwd")),
+        (lambda t: ops.blur(t * t, K4, (1, 1), 2), x, [], ("blur",)),
+        (lambda t: ops.blur(t * t, K4, (2, 2)), x, [], ("blur",)),
+        (lambda t: ops.upsample2x(t * t, UP_TAPS, (2, 1)), x3, [], ("upsample2x", "downsample2x")),
+        (lambda t: ops.downsample2x(t * t, UP_TAPS, (1, 1)), x3, [], ("downsample2x", "upsample2x")),
+    ]
+    for fn, inp, params, kernels in cases:
+        ops.reset_launches()
+        got = _first_and_second_order(fn, inp, params)
+        counts = ops.launch_counts()
+        assert all(counts[k] > 0 for k in kernels), (kernels, counts)
+        with ops.plain_versions():
+            want = _first_and_second_order(fn, inp, params)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, atol=1e-5 * float(b.abs().max()) + 1e-12, rtol=0)
 
 
 @pytest.mark.gpu
@@ -83,11 +134,62 @@ def test_small_forward_on_card_matches_cpu(cuda_device):
     render = torch.rand(2, 128, 128, 3, generator=gen) * 2 - 1
     ops.reset_launches()
     got = forward_3_encoder(m_gpu, photo, render).cpu()
-    assert ops.launch_counts() == {"blur": 2, "upsample2x": 2, "fused_leaky_relu": 5}
+    assert ops.launch_counts() == {"blur": 2, "upsample2x": 2, "fused_leaky_relu": 5,
+                                   "fused_leaky_relu_bwd": 0, "downsample2x": 0}
     want = forward_3_encoder(m_cpu, photo, render)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
     ops.reset_launches()
     with ops.plain_versions():
         plain = forward_3_encoder(m_gpu, photo, render).cpu()
-    assert ops.launch_counts() == {"blur": 0, "upsample2x": 0, "fused_leaky_relu": 0}
+    assert ops.launch_counts() == {"blur": 0, "upsample2x": 0, "fused_leaky_relu": 0,
+                                   "fused_leaky_relu_bwd": 0, "downsample2x": 0}
     torch.testing.assert_close(got, plain, atol=1e-4, rtol=0)
+
+
+TINY_TRAIN = TrainConfig(size=16, latent=32, width_mult=1 / 16, rec_face_reg_loss_lambda=0.0,
+                         ds_face_reg_loss_lambda=0.0, ep_face_reg_loss_lambda=0.0)
+
+
+def _train_inputs(seed, n=4):
+    rng = np.random.RandomState(seed)
+    photo = torch.from_numpy(rng.uniform(-1, 1, (n, 3, 128, 128)).astype(np.float32))
+    render = torch.from_numpy(rng.uniform(-1, 1, (n, 3, 128, 128)).astype(np.float32))
+    ref = torch.from_numpy(rng.uniform(-1, 1, (n, 3, 16, 16)).astype(np.float32))
+    ppl = torch.from_numpy((rng.randn(n // 2, 3, 16, 16) / 16).astype(np.float32))
+    return photo, render, ref, ppl
+
+
+def _all_grads(trainer, photo, render, ref, ppl):
+    st, cfg = trainer.state, trainer.config
+    out = {}
+    out["d"] = steps.d_step_grads(st, cfg, photo, render, ref, use_edit=False)[0]
+    out["r1"] = steps.d_reg_step_grads(st, cfg, ref, use_edit=True)[0]
+    out["g"] = steps.g_step_grads(st, cfg, photo, render, ref, False, True, False)[0]
+    out["ppl"] = steps.g_reg_step_grads(st, cfg, photo[:2], render[:2], ppl_noise=ppl)[0]
+    return out
+
+
+@pytest.mark.gpu
+def test_small_training_grads_on_card_match_cpu(cuda_device):
+    """The D, R1, G and PPL gradients of a size-16 state: the kernel path on
+    the card against the plain path on the CPU, same seeded weights and fixed
+    noise, each tensor within 1e-4 of its largest gradient plus 1e-6 of its
+    partition's largest (a bias right ahead of a train-mode BatchNorm has a
+    gradient that is zero in exact arithmetic, and both sides return rounding
+    residue there)."""
+    tg = Trainer(TINY_TRAIN, seed=7, device=cuda_device, input_size=128)
+    tc = Trainer(TINY_TRAIN, seed=7, device="cpu", input_size=128)
+    photo, render, ref, ppl = _train_inputs(8)
+    ops.reset_launches()
+    got = _all_grads(tg, *(t.to(cuda_device) for t in (photo, render, ref, ppl)))
+    assert all(v > 0 for v in ops.launch_counts().values()), ops.launch_counts()
+    want = _all_grads(tc, photo, render, ref, ppl)
+    bad = []
+    for step in want:
+        for part, tensors in want[step].items():
+            floor = 1e-6 * max(float(w.abs().max()) for w in tensors.values())
+            for name, w in tensors.items():
+                err = float((got[step][part][name].cpu() - w).abs().max())
+                if err > 1e-4 * float(w.abs().max()) + floor:
+                    bad.append((step, part, name, err, float(w.abs().max())))
+    assert not bad, bad

@@ -13,8 +13,10 @@ import torch
 
 from fm3dgan.compat import torch_port
 from fm3dgan_torch.compat import from_jax
-from fm3dgan_torch.models import Generator, GradualStyleEncoder, ResNet18Encoder
+from fm3dgan_torch.models import Discriminator, Generator, GradualStyleEncoder, ResNet18Encoder
+from fm3dgan_torch.models.generator import channel_table
 from fm3dgan_torch.pipeline import FaceManipulator
+from fm3dgan_torch.train import TrainConfig, Trainer
 from test_compat import _synth_generator_sd
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -33,6 +35,7 @@ def test_importing_the_port_loads_no_jax():
         "import sys\n"
         "import fm3dgan_torch, fm3dgan_torch.ops, fm3dgan_torch.nn, fm3dgan_torch.models\n"
         "import fm3dgan_torch.pipeline, fm3dgan_torch.compat\n"
+        "import fm3dgan_torch.losses, fm3dgan_torch.train\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
     )
@@ -71,6 +74,13 @@ def test_create_without_device_raises_without_a_card():
         FaceManipulator.create(size=16, input_size=128, width_mult=1 / 16, style_dim=32)
 
 
+def test_trainer_without_device_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(TrainConfig(size=16, latent=32, width_mult=1 / 16), input_size=128)
+
+
 def _randomized(sd, seed):
     rng = np.random.RandomState(seed)
     return {k: rng.randn(*np.shape(v)).astype(np.float32) for k, v in sd.items()}
@@ -105,3 +115,37 @@ def test_encoder_state_dict_round_trip(which):
     back = from_jax({which: convert(sd)})[which]
     _assert_same({k: v.numpy() for k, v in back.items()}, sd)
     module.load_state_dict(back)
+
+
+def _synth_discriminator_sd(size=16, cm=2):
+    """The reference Discriminator's state-dict layout (stylegan2.py:762-820):
+    ConvLayers are nn.Sequential, the downsampling ones led by a Blur."""
+    ch = channel_table(cm)
+    log_size = int(np.log2(size))
+    sd = {"convs.0.0.weight": np.zeros((ch[size], 3, 1, 1)), "convs.0.1.bias": np.zeros(ch[size])}
+    in_ch = ch[size]
+    for i, res in enumerate(range(log_size, 2, -1), start=1):
+        out_ch = ch[2 ** (res - 1)]
+        sd[f"convs.{i}.conv1.0.weight"] = np.zeros((in_ch, in_ch, 3, 3))
+        sd[f"convs.{i}.conv1.1.bias"] = np.zeros(in_ch)
+        sd[f"convs.{i}.conv2.1.weight"] = np.zeros((out_ch, in_ch, 3, 3))
+        sd[f"convs.{i}.conv2.2.bias"] = np.zeros(out_ch)
+        sd[f"convs.{i}.skip.1.weight"] = np.zeros((out_ch, in_ch, 1, 1))
+        in_ch = out_ch
+    sd["final_conv.0.weight"] = np.zeros((ch[4], in_ch + 1, 3, 3))
+    sd["final_conv.1.bias"] = np.zeros(ch[4])
+    sd["final_linear.0.weight"] = np.zeros((ch[4], ch[4] * 16))
+    sd["final_linear.0.bias"] = np.zeros(ch[4])
+    sd["final_linear.1.weight"] = np.zeros((1, ch[4]))
+    sd["final_linear.1.bias"] = np.zeros(1)
+    return sd
+
+
+def test_reference_discriminator_state_dict_round_trip():
+    """Reference layout -> convert_discriminator -> discriminator_from_jax
+    gives it back (the NCHW/NHWC flatten permutation of final_linear.0
+    undone), and loads into the port's Discriminator unchanged."""
+    sd = _randomized(_synth_discriminator_sd(), 2)
+    back = from_jax({"d": torch_port.convert_discriminator(sd, size=16)})["d"]
+    _assert_same({k: v.numpy() for k, v in back.items()}, sd)
+    Discriminator(size=16).load_state_dict(back)

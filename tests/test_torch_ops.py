@@ -119,6 +119,11 @@ def test_wrappers_on_cpu_launch_nothing():
     x = torch.randn(1, 4, 9, 9)
     ops.blur(x, K4, (1, 1), 2)
     ops.upsample2x(x, UP_TAPS, (2, 1))
-    ops.fused_leaky_relu(x, torch.zeros(4))
-    assert ops.launch_counts() == {"blur": 0, "upsample2x": 0, "fused_leaky_relu": 0}
+    y = ops.fused_leaky_relu(x, torch.zeros(4))
+    ops.fused_leaky_relu_bwd(x, y)
+    ops.downsample2x(x, UP_TAPS, (1, 1))
+    assert ops.launch_counts() == {
+        "blur": 0, "upsample2x": 0, "fused_leaky_relu": 0,
+        "fused_leaky_relu_bwd": 0, "downsample2x": 0,
+    }
 
