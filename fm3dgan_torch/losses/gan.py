@@ -12,15 +12,17 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
+from fm3dgan_torch.precision import acc
+
 
 def d_logistic_loss(real_pred: torch.Tensor, fake_pred: torch.Tensor) -> torch.Tensor:
     """softplus(-real).mean() + softplus(fake).mean()."""
-    return F.softplus(-real_pred.float()).mean() + F.softplus(fake_pred.float()).mean()
+    return F.softplus(-acc(real_pred)).mean() + F.softplus(acc(fake_pred)).mean()
 
 
 def g_nonsaturating_loss(fake_pred: torch.Tensor) -> torch.Tensor:
     """softplus(-fake).mean()."""
-    return F.softplus(-fake_pred.float()).mean()
+    return F.softplus(-acc(fake_pred)).mean()
 
 
 def d_r1_penalty(d_fn: Callable[[torch.Tensor], torch.Tensor], real_img: torch.Tensor) -> torch.Tensor:
@@ -28,5 +30,5 @@ def d_r1_penalty(d_fn: Callable[[torch.Tensor], torch.Tensor], real_img: torch.T
     parameters inside ``d_fn`` (second-order autograd)."""
     real_img = real_img.detach().requires_grad_(True)
     pred = d_fn(real_img)
-    (grad,) = torch.autograd.grad(pred.float().sum(), real_img, create_graph=True)
-    return grad.float().square().reshape(grad.shape[0], -1).sum(1).mean()
+    (grad,) = torch.autograd.grad(acc(pred).sum(), real_img, create_graph=True)
+    return acc(grad).square().reshape(grad.shape[0], -1).sum(1).mean()

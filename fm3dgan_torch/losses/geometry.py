@@ -7,6 +7,8 @@ from typing import Callable
 
 import torch
 
+from fm3dgan_torch.precision import acc
+
 
 def get_render_mask(render_img: torch.Tensor) -> torch.Tensor:
     """[N, 3, H, W] -> [N, H, W] float mask where the render has content
@@ -17,7 +19,7 @@ def get_render_mask(render_img: torch.Tensor) -> torch.Tensor:
 def face_regional_loss(r_img: torch.Tensor, g_img: torch.Tensor) -> torch.Tensor:
     """MSE between the render-masked render and the render-masked output."""
     mask = get_render_mask(r_img)[:, None]
-    return (r_img.float() * mask - g_img.float() * mask).square().mean()
+    return (acc(r_img) * mask - acc(g_img) * mask).square().mean()
 
 
 def heat_map_loss(
@@ -27,6 +29,6 @@ def heat_map_loss(
 ) -> torch.Tensor:
     """Mean over the batch of sum((H_render - H_gen)^2) over the heatmaps
     that ``heatmap_fn`` (images -> [N, K, h, w]) gives."""
-    hm_r = heatmap_fn(r_input).float()
-    hm_g = heatmap_fn(g_output).float()
+    hm_r = acc(heatmap_fn(r_input))
+    hm_g = acc(heatmap_fn(g_output))
     return (hm_r - hm_g).square().sum(dim=(1, 2, 3)).mean()

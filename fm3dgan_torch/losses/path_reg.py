@@ -14,6 +14,8 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from fm3dgan_torch.precision import acc, acc_dtype
+
 
 def path_regularize(
     g_fn: Callable[[torch.Tensor], torch.Tensor],
@@ -35,9 +37,9 @@ def path_regularize(
     n, _, h, w = fake.shape
     if noise is None:
         noise = torch.randn(fake.shape, generator=generator, device=fake.device,
-                            dtype=torch.float32) / math.sqrt(h * w)
-    (grad,) = torch.autograd.grad((fake.float() * noise).sum(), latent, create_graph=True)
-    path_lengths = torch.sqrt(grad.float().square().sum(2).mean(1))
+                            dtype=acc_dtype(fake.dtype)) / math.sqrt(h * w)
+    (grad,) = torch.autograd.grad((acc(fake) * noise).sum(), latent, create_graph=True)
+    path_lengths = torch.sqrt(acc(grad).square().sum(2).mean(1))
     path_mean = mean_path_length + decay * (path_lengths.mean() - mean_path_length)
     penalty = (path_lengths - path_mean).square().mean()
     return penalty, path_mean.detach(), path_lengths

@@ -11,6 +11,8 @@ from typing import Callable
 
 import torch
 
+from fm3dgan_torch.precision import acc
+
 FACE_ID_LOSS_TYPE = ("MSE", "CosineSimilarity")
 
 # Rec. 601 luma coefficients.
@@ -19,7 +21,7 @@ _GRAY_COEF = (0.2989, 0.587, 0.114)
 
 def l1_loss(output: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """mean(|out - ref|)."""
-    return (output.float() - target.float()).abs().mean()
+    return (acc(output) - acc(target)).abs().mean()
 
 
 def rgb_to_grayscale(img: torch.Tensor) -> torch.Tensor:
@@ -44,8 +46,8 @@ def face_identity_loss(
     """Feature loss of ``face_rec_fn`` ([N, 1, H/2, W/2] -> [N, D])."""
     if loss_type not in FACE_ID_LOSS_TYPE:
         raise ValueError(f"loss_type must be one of {FACE_ID_LOSS_TYPE}, got {loss_type}")
-    out_feat = face_rec_fn(convert_for_face_recognition(output)).float()
-    tgt_feat = face_rec_fn(convert_for_face_recognition(target)).float()
+    out_feat = acc(face_rec_fn(convert_for_face_recognition(output)))
+    tgt_feat = acc(face_rec_fn(convert_for_face_recognition(target)))
     if loss_type == "MSE":
         return (out_feat - tgt_feat).square().mean()
     num = (out_feat * tgt_feat).sum(-1)

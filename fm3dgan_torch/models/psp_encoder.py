@@ -13,6 +13,7 @@ from __future__ import annotations
 import math
 from typing import List, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -183,7 +184,30 @@ class GradualStyleEncoder(nn.Module):
         return torch.stack(latents, dim=1)
 
 
+def _align_corners_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """[out, in] interpolation matrix for align_corners=True bilinear."""
+    m = np.zeros((out_size, in_size), np.float32)
+    if out_size == 1:
+        m[0, 0] = 1.0
+        return m
+    src = np.arange(out_size) * ((in_size - 1) / (out_size - 1))
+    lo = np.clip(np.floor(src).astype(np.int64), 0, in_size - 1)
+    hi = np.clip(lo + 1, 0, in_size - 1)
+    frac = (src - lo).astype(np.float32)
+    m[np.arange(out_size), lo] += 1.0 - frac
+    m[np.arange(out_size), hi] += frac
+    return m
+
+
 def _upsample_align_corners(x, like):
-    if x.shape[2:] == like.shape[2:]:
+    """Bilinear resize (align_corners=True) to ``like``'s size as two small
+    interpolation matmuls, as the JAX module computes it.  Unlike
+    ``F.interpolate``, whose CUDA backward accumulates with atomics, the
+    gradient is the same from run to run."""
+    (h, w), (oh, ow) = x.shape[2:], like.shape[2:]
+    if (h, w) == (oh, ow):
         return x
-    return F.interpolate(x, size=like.shape[2:], mode="bilinear", align_corners=True)
+    wy = torch.as_tensor(_align_corners_matrix(h, oh), dtype=x.dtype, device=x.device)
+    wx = torch.as_tensor(_align_corners_matrix(w, ow), dtype=x.dtype, device=x.device)
+    x = torch.einsum("oh,nchw->ncow", wy, x)
+    return torch.einsum("ow,nchw->ncho", wx, x)

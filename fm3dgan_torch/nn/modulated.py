@@ -20,6 +20,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from fm3dgan_torch.nn.layers import Blur, EqualLinear, FusedLeakyReLU, Upsample
+from fm3dgan_torch.precision import acc_dtype
 
 
 class ModulatedConv2d(nn.Module):
@@ -43,7 +44,7 @@ class ModulatedConv2d(nn.Module):
         self.weight = nn.Parameter(
             torch.randn(1, out_channel, in_channel, kernel_size, kernel_size)
         )
-        self.modulation = EqualLinear(style_dim, in_channel, bias_init=1.0)
+        self.modulation = EqualLinear(style_dim, in_channel, bias_init=1.0, dtype=acc_dtype(dtype))
         self.demodulate = demodulate
         self.upsample = upsample
         self.dtype = dtype
@@ -56,8 +57,8 @@ class ModulatedConv2d(nn.Module):
 
     def forward(self, x, style):
         """x: [N, Cin, H, W]; style: [N, style_dim] -> [N, Cout, H', W']."""
-        s = self.modulation(style)  # [N, Cin], float32
-        w = self.weight[0] * self.scale  # [O, I, k, k]
+        s = self.modulation(style)  # [N, Cin], float32 (float64 for float64)
+        w = self.weight[0].to(s.dtype) * self.scale  # [O, I, k, k]
         x = (x * s[:, :, None, None]).to(self.dtype)
         w_c = w.to(self.dtype)
         if self.upsample:

@@ -135,21 +135,26 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
-_plain = threading.local()
+# A process-wide flag, not a thread-local one: autograd runs the backward of
+# CUDA nodes on a thread of its own per device, and the backward Functions
+# must see the switch there too.
+_plain_on = False
 
 
 @contextlib.contextmanager
 def plain_versions():
-    """Run every wrapper's plain PyTorch version, also on CUDA tensors.
+    """Run every wrapper's plain PyTorch version, also on CUDA tensors, in the
+    forward and in the backward.
 
     Only the chip smoke test and the tests enter this, to hold the kernels
     against their plain versions on the card; the entry points never do."""
-    prev = getattr(_plain, "on", False)
-    _plain.on = True
+    global _plain_on
+    prev = _plain_on
+    _plain_on = True
     try:
         yield
     finally:
-        _plain.on = prev
+        _plain_on = prev
 
 
 def use_kernel(x) -> bool:
@@ -159,7 +164,7 @@ def use_kernel(x) -> bool:
     if kind == "cpu":
         return False
     if kind == "cuda":
-        return not getattr(_plain, "on", False)
+        return not _plain_on
     raise RuntimeError(f"fm3dgan_torch runs on cpu or cuda, not {kind}")
 
 

@@ -26,6 +26,7 @@ from typing import Optional
 import torch
 
 from fm3dgan_torch.ops import _build
+from fm3dgan_torch.precision import acc, acc_dtype
 
 
 def fused_leaky_relu_plain(
@@ -34,10 +35,11 @@ def fused_leaky_relu_plain(
     negative_slope: float = 0.2,
     scale: float = math.sqrt(2.0),
 ) -> torch.Tensor:
-    """In float32; the bias is first cast to x's dtype, as the JAX op adds it."""
-    y = x.float()
+    """In float32 (float64 for float64); the bias is first cast to x's dtype,
+    as the JAX op adds it."""
+    y = acc(x)
     if bias is not None:
-        y = y + bias.to(x.dtype).float().reshape(1, -1, *([1] * (x.dim() - 2)))
+        y = y + bias.to(x.dtype).to(y.dtype).reshape(1, -1, *([1] * (x.dim() - 2)))
     return (torch.where(y >= 0, y, y * negative_slope) * scale).to(x.dtype)
 
 
@@ -47,9 +49,10 @@ def fused_leaky_relu_bwd_plain(
     negative_slope: float = 0.2,
     scale: float = math.sqrt(2.0),
 ) -> torch.Tensor:
-    """dx from the saved output's sign, in float32 (``_bwd_kernel``)."""
-    gain = torch.where(out >= 0, scale, negative_slope * scale)
-    return (grad.float() * gain).to(grad.dtype)
+    """dx from the saved output's sign, in float32 (float64 for float64;
+    ``_bwd_kernel``)."""
+    g = acc(grad)
+    return torch.where(out >= 0, g * scale, g * (negative_slope * scale)).to(grad.dtype)
 
 
 def _launch_fwd(x, bias, negative_slope, scale):
@@ -105,7 +108,7 @@ def _launch_bwd(grad, out, negative_slope, scale):
 def _channel_sum(dx: torch.Tensor) -> torch.Tensor:
     """dbias: the sum over every dim but 1, accumulated in float32."""
     dims = [0] + list(range(2, dx.dim()))
-    return dx.sum(dim=dims, dtype=torch.float32).to(dx.dtype)
+    return dx.sum(dim=dims, dtype=acc_dtype(dx.dtype)).to(dx.dtype)
 
 
 class _FusedLeakyReLUFn(torch.autograd.Function):

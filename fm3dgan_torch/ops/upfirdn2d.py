@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from fm3dgan_torch.ops import _build
+from fm3dgan_torch.precision import acc
 
 
 def make_kernel(k: Sequence[float]) -> np.ndarray:
@@ -59,16 +60,17 @@ def _normalize_args(up, down, pad):
 
 
 def upfirdn2d(x: torch.Tensor, kernel, up=1, down=1, pad=(0, 0)) -> torch.Tensor:
-    """Plain upfirdn2d on an NCHW tensor, computed in float32.
+    """Plain upfirdn2d on an NCHW tensor, computed in float32 (float64 for
+    float64).
 
     kernel: [kh, kw] host array (true convolution).  up/down: int or (x, y).
     pad: (pad0, pad1) on both axes or (pad_x0, pad_x1, pad_y0, pad_y1).
     """
     up_x, up_y, down_x, down_y, px0, px1, py0, py1 = _normalize_args(up, down, pad)
     n, c, h, w = x.shape
-    k = torch.as_tensor(np.asarray(kernel, np.float32), device=x.device)
+    y = acc(x)
+    k = torch.as_tensor(np.asarray(kernel, np.float32), device=x.device, dtype=y.dtype)
     kh, kw = k.shape
-    y = x.float()
     if up_x > 1 or up_y > 1:
         y = y.reshape(n, c, h, 1, w, 1)
         y = F.pad(y, (0, up_x - 1, 0, 0, 0, up_y - 1))

@@ -3,8 +3,11 @@
 Counterpart of ``fm3dgan/train/config.py``: the model, encoder, schedule,
 regulariser, loss, EMA and compute-dtype fields with the shipped 3-encoder
 values.  The JAX package's TPU dispatch and memory knobs (``fuse_*``,
-``remat_*``, ``data_axis``) have no counterpart here; ``share_dg_noise`` and
-the eval/checkpoint cadences wait for later slices (``ROADMAP.md``).
+``remat_*``, ``data_axis``) have no counterpart here.  Fields that no ported
+code would read wait for the slice that reads them (``ROADMAP.md``): the
+LPIPS and face-ID weights and type, the heatmap iteration threshold, the
+batch sizes of the data loader (the trainer takes its batch from its
+inputs), ``share_dg_noise`` and the eval/checkpoint cadences.
 """
 
 from __future__ import annotations
@@ -40,8 +43,6 @@ class TrainConfig:
     # Schedule
     ds_freq: int = 2  # 1 dual-supervision iteration every ds_freq
     ex_ds_freq: int = 3  # 1 extreme-DS iteration every ex_ds_freq DS ones
-    rec_batch: int = 16
-    ds_batch: int = 16
     lr: float = 1e-3
 
     # Regularisers
@@ -52,14 +53,11 @@ class TrainConfig:
     r1: float = 10.0
     d_reg_every: int = 16
 
-    # Loss weights
-    lpips_loss_lambda: float = 3.0
+    # Loss weights.  Only the terms the port computes; the FAN heatmap term
+    # is refused above 0 by the Trainer.
     l1_loss_lambda: float = 3.0
     ep_lpips_l1_weight_shrink: float = 10.0
-    face_id_loss_lambda: float = 30.0
-    face_id_loss_type: str = "MSE"
     hmap_loss_lambda: float = 0.0
-    hmap_iter_thres: float = math.inf
     rec_face_reg_loss_lambda: float = 0.0
     ds_face_reg_loss_lambda: float = 20.0
     ep_face_reg_loss_lambda: float = 100.0

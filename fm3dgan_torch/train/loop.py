@@ -45,8 +45,17 @@ class Trainer:
             raise NotImplementedError("the FAN heatmap loss network is not ported yet")
         self.config = config
         self.device = resolve_device(device)
-        dtype = DTYPES[config.compute_dtype]
         self.input_size = input_size or config.size
+        self.state = self._create_state(DTYPES[config.compute_dtype], seed)
+        self._seed = seed
+        # Host RNG for the PPL subset choice, drawn at every PPL iteration.
+        self._host_rng = np.random.RandomState(seed)
+        zero = torch.zeros((), device=self.device)
+        self._last_r1 = zero
+        self._last_greg = {"g_reg": zero, "path_length": zero}
+
+    def _create_state(self, dtype: torch.dtype, seed: int) -> TrainState:
+        config = self.config
         models = FaceManipulator.create(
             size=config.size, style_dim=config.latent, n_mlp=config.n_mlp,
             channel_multiplier=config.channel_multiplier,
@@ -60,13 +69,20 @@ class Trainer:
             d = Discriminator(**d_kw)
             torch.manual_seed(seed + 2)
             d_edit = Discriminator(**d_kw)
-        self.state = TrainState.create(config, models, d.to(self.device), d_edit.to(self.device))
-        self._seed = seed
-        # Host RNG for the PPL subset choice, drawn at every PPL iteration.
-        self._host_rng = np.random.RandomState(seed)
-        zero = torch.zeros((), device=self.device)
-        self._last_r1 = zero
-        self._last_greg = {"g_reg": zero, "path_length": zero}
+        return TrainState.create(config, models, d.to(self.device), d_edit.to(self.device))
+
+    def float64_state(self) -> TrainState:
+        """A state whose models and discriminators hold this state's
+        parameters (float32, cast at use) and compute in float64.  On the CPU
+        or under ``plain_versions()`` its steps run the plain path with no
+        float32 step: the exact reference that the chip smoke test and the
+        card tests hold float32 gradients against.  Not for training: the
+        kernels take float32 and bfloat16 only."""
+        ref = self._create_state(torch.float64, self._seed)
+        for dst, src in ((ref.models, self.state.models), (ref.d, self.state.d),
+                         (ref.d_edit, self.state.d_edit)):
+            dst.load_state_dict(src.state_dict())
+        return ref
 
     def schedule(self, iter_idx: int, batch: int) -> Dict[str, Any]:
         """The iteration's branch flags and PPL subset (consumes the host RNG

@@ -11,6 +11,8 @@ plain version.
 """
 
 import math
+import threading
+import types
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +23,7 @@ import torch
 from fm3dgan.ops.pallas import fused_act_kernel as pk
 from fm3dgan.ops.pallas.upfirdn2d_kernel import blur_pallas, resample2x_pallas
 from fm3dgan_torch import ops
+from fm3dgan_torch.ops import _build
 from torch_port_utils import assert_close, nchw
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -142,6 +145,21 @@ SECOND_ORDER = {
         lambda t: ops.fused_leaky_relu_bwd_plain(t * t, torch.linspace(-1, 1, t.numel()).reshape(t.shape)),
         False),
 }
+
+
+def test_plain_versions_switch_holds_on_every_thread():
+    """autograd runs the backward of CUDA nodes on a thread of its own, so
+    ``plain_versions()`` must reach the backward Functions there too."""
+    on_card = types.SimpleNamespace(device=torch.device("cuda"))
+    seen = []
+    probe = lambda: seen.append(_build.use_kernel(on_card))  # noqa: E731
+    with ops.plain_versions():
+        worker = threading.Thread(target=probe)
+        worker.start()
+        worker.join()
+        probe()
+    probe()
+    assert seen == [False, False, True]
 
 
 @pytest.mark.parametrize("name", sorted(SECOND_ORDER))

@@ -98,7 +98,8 @@ def _first_and_second_order(fn, x, params):
 def test_gradients_flow_through_kernels_and_match_plain(cuda_device):
     """First- and second-order gradients through each kernel's Function on the
     card match the same Functions run on the plain versions, and launch the
-    forward and backward kernels."""
+    forward and backward kernels; the plain run, backward included, launches
+    none."""
     g = torch.Generator(device=cuda_device).manual_seed(1)
     x = torch.randn(2, 12, 17, 17, device=cuda_device, generator=g)
     x3 = torch.randn(2, 3, 8, 8, device=cuda_device, generator=g)
@@ -117,8 +118,10 @@ def test_gradients_flow_through_kernels_and_match_plain(cuda_device):
         got = _first_and_second_order(fn, inp, params)
         counts = ops.launch_counts()
         assert all(counts[k] > 0 for k in kernels), (kernels, counts)
+        ops.reset_launches()
         with ops.plain_versions():
             want = _first_and_second_order(fn, inp, params)
+        assert not any(ops.launch_counts().values()), ops.launch_counts()
         for a, b in zip(got, want):
             torch.testing.assert_close(a, b, atol=1e-5 * float(b.abs().max()) + 1e-12, rtol=0)
 
@@ -126,7 +129,8 @@ def test_gradients_flow_through_kernels_and_match_plain(cuda_device):
 @pytest.mark.gpu
 def test_small_forward_on_card_matches_cpu(cuda_device):
     """Same seeded weights: the kernel path on the card against the plain path
-    on the CPU, with the launch counts of a size-16 generator."""
+    on the CPU and on the card, with the launch counts of a size-16
+    generator."""
     m_gpu = FaceManipulator.create(**SMALL, device=cuda_device, seed=5)
     m_cpu = FaceManipulator.create(**SMALL, device="cpu", seed=5)
     gen = torch.Generator().manual_seed(6)
@@ -173,10 +177,10 @@ def _all_grads(trainer, photo, render, ref, ppl):
 def test_small_training_grads_on_card_match_cpu(cuda_device):
     """The D, R1, G and PPL gradients of a size-16 state: the kernel path on
     the card against the plain path on the CPU, same seeded weights and fixed
-    noise, each tensor within 1e-4 of its largest gradient plus 1e-6 of its
-    partition's largest (a bias right ahead of a train-mode BatchNorm has a
-    gradient that is zero in exact arithmetic, and both sides return rounding
-    residue there)."""
+    noise, each tensor held to ``chip_smoke.hold_gradient`` with the float64
+    plain path on the CPU as the exact reference."""
+    from chip_smoke import hold_gradient
+
     tg = Trainer(TINY_TRAIN, seed=7, device=cuda_device, input_size=128)
     tc = Trainer(TINY_TRAIN, seed=7, device="cpu", input_size=128)
     photo, render, ref, ppl = _train_inputs(8)
@@ -184,12 +188,15 @@ def test_small_training_grads_on_card_match_cpu(cuda_device):
     got = _all_grads(tg, *(t.to(cuda_device) for t in (photo, render, ref, ppl)))
     assert all(v > 0 for v in ops.launch_counts().values()), ops.launch_counts()
     want = _all_grads(tc, photo, render, ref, ppl)
+    tc.state = tc.float64_state()
+    exact = _all_grads(tc, *(t.double() for t in (photo, render, ref, ppl)))
     bad = []
     for step in want:
-        for part, tensors in want[step].items():
-            floor = 1e-6 * max(float(w.abs().max()) for w in tensors.values())
-            for name, w in tensors.items():
-                err = float((got[step][part][name].cpu() - w).abs().max())
-                if err > 1e-4 * float(w.abs().max()) + floor:
-                    bad.append((step, part, name, err, float(w.abs().max())))
+        for part, tensors in exact[step].items():
+            part_max = max(float(e.abs().max()) for e in tensors.values())
+            for name, e in tensors.items():
+                ok, rel = hold_gradient(got[step][part][name].cpu(), want[step][part][name], e,
+                                        part_max)
+                if not ok:
+                    bad.append((step, part, name, rel))
     assert not bad, bad

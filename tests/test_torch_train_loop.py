@@ -200,6 +200,28 @@ def test_loss_functions_and_gradients_match_jax(name):
             assert_close(t.permute(0, 2, 3, 1).numpy(), np.asarray(j), 1e-6, 1e-5, f"{name} grad")
 
 
+def test_float64_state_holds_the_parameters_and_computes_in_float64():
+    """The exact reference of the gradient checks: the same parameters, and a
+    float64 forward through G, D and the losses close to the float32 one."""
+    trainer = _tiny_trainer(seed=4)
+    st, ref = trainer.state, trainer.float64_state()
+    for a, b in ((st.models, ref.models), (st.d, ref.d), (st.d_edit, ref.d_edit)):
+        sa, sb = a.state_dict(), b.state_dict()
+        assert list(sa) == list(sb)
+        for k in sa:
+            torch.testing.assert_close(sa[k], sb[k], rtol=0, atol=0)
+    rng = np.random.RandomState(7)
+    photo, render = (torch.from_numpy(rng.uniform(-1, 1, (2, 3, 128, 128)).astype(np.float32))
+                     for _ in range(2))
+    img32 = steps.forward_full(st.models, photo, render, trainer.config)
+    img64 = steps.forward_full(ref.models, photo.double(), render.double(), trainer.config)
+    pred32, pred64 = st.d(img32), ref.d(img64)
+    assert img64.dtype == pred64.dtype == torch.float64
+    assert losses.g_nonsaturating_loss(pred64).dtype == torch.float64
+    torch.testing.assert_close(img64, img32.double(), rtol=0, atol=1e-5 * float(img64.abs().max()))
+    torch.testing.assert_close(pred64, pred32.double(), rtol=0, atol=1e-5 * float(pred64.abs().max()))
+
+
 def test_trainer_updates_every_partition():
     """Iterations 0 (R1 + PPL) and 1 (DS with D_edit) on uint8 batches."""
     trainer = _tiny_trainer(seed=2)
