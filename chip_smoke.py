@@ -10,7 +10,9 @@ Builds the hand-written CUDA kernels of ``fm3dgan_torch`` from
    (batch 16), float32 and bfloat16, against its plain PyTorch version on
    the card, with its time, the plain version's time, one PyTorch library
    call's time where one computes the same function, and its memory/compute
-   bound;
+   bound; the kernel and the library call are also timed apart on the
+   device (``device_ms``, a CUDA-graph replay) and on the host
+   (``host_us``);
 2. path phase: ``FaceManipulator.create(size=256, input_size=256)`` with
    seeded random weights runs ``forward_3_encoder`` at batch 8 in float32
    through the kernels and through the plain versions, checks the output
@@ -111,18 +113,62 @@ def require(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
-def cuda_ms(fn, iters: int = 30, warmup: int = 3) -> float:
+def cuda_ms(fn, iters: int = 30, warmup: int = 3):
+    """(ms, host_us) per call: CUDA events around ``iters`` back-to-back
+    eager calls, and the host's perf_counter over the same calls without a
+    synchronize.  Where a call's host work is longer than its device work,
+    the events time the host."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
+    t0 = time.perf_counter()
     for _ in range(iters):
         fn()
+    host = time.perf_counter() - t0
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters, host / iters * 1e6
+
+
+def graph_ms(fn, iters: int = 20, replays: int = 3) -> float:
+    """Device ms per call: the same ``iters`` calls captured once in a CUDA
+    graph, its replay timed with events (mean of ``replays`` after a warm
+    replay), over ``iters``.  No host work is left in the replay."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (replays * iters)
+
+
+def time_calls(kernel_fn, plain_fn, lib_fn, iters: int) -> dict:
+    """kernel_ms, plain_ms and library_ms as events around eager calls (the
+    measurement of every earlier run), with device_ms and host_us for the
+    kernel and the library call (None where no library call exists)."""
+    rec = {}
+    rec["kernel_ms"], rec["host_us"] = cuda_ms(kernel_fn, iters=iters)
+    rec["device_ms"] = graph_ms(kernel_fn, iters=iters)
+    rec["plain_ms"] = cuda_ms(plain_fn, iters=iters)[0]
+    if lib_fn is None:
+        rec.update(library_ms=None, library_host_us=None, library_device_ms=None)
+    else:
+        rec["library_ms"], rec["library_host_us"] = cuda_ms(lib_fn, iters=iters)
+        rec["library_device_ms"] = graph_ms(lib_fn, iters=iters)
+    return rec
 
 
 def bound(in_bytes: int, out_bytes: int, flops: int):
@@ -159,9 +205,8 @@ def kernel_phase(ops):
             rec = dict(kernel="blur", shape=list(x.shape), dtype=str(dtype).split(".")[1],
                        launches_per_forward=1, **compare(got, ref32, dtype))
             rec["library_max_abs_diff"] = float((lib().float() - ref32).abs().max())
-            rec["kernel_ms"] = cuda_ms(lambda: ops.blur(x, k2d, (1, 1)))
-            rec["plain_ms"] = cuda_ms(lambda: ops.blur_plain(x, k2d, (1, 1)))
-            rec["library_ms"] = cuda_ms(lib)
+            rec.update(time_calls(lambda: ops.blur(x, k2d, (1, 1)),
+                                  lambda: ops.blur_plain(x, k2d, (1, 1)), lib, iters=30))
             rec["bound_ms"], rec["bound_by"] = bound(x.numel() * esize, got.numel() * esize,
                                                      got.numel() * 16 * 2)
             records.append(rec)
@@ -176,9 +221,8 @@ def kernel_phase(ops):
             rec = dict(kernel="upsample2x", shape=list(x.shape), dtype=str(dtype).split(".")[1],
                        launches_per_forward=1, **compare(got, ref32, dtype))
             rec["library_max_abs_diff"] = float((lib().float() - ref32).abs().max())
-            rec["kernel_ms"] = cuda_ms(lambda: ops.upsample2x(x, k1d, (2, 1)))
-            rec["plain_ms"] = cuda_ms(lambda: ops.upsample2x_plain(x, k1d, (2, 1)))
-            rec["library_ms"] = cuda_ms(lib)
+            rec.update(time_calls(lambda: ops.upsample2x(x, k1d, (2, 1)),
+                                  lambda: ops.upsample2x_plain(x, k1d, (2, 1)), lib, iters=30))
             rec["bound_ms"], rec["bound_by"] = bound(x.numel() * esize, got.numel() * esize,
                                                      got.numel() * 4 * 2)
             records.append(rec)
@@ -191,9 +235,8 @@ def kernel_phase(ops):
             ref32 = ops.fused_leaky_relu_plain(x.float(), b.to(dtype).float())
             rec = dict(kernel="fused_leaky_relu", shape=list(x.shape), dtype=str(dtype).split(".")[1],
                        launches_per_forward=n_launch, **compare(got, ref32, dtype))
-            rec["kernel_ms"] = cuda_ms(lambda: ops.fused_leaky_relu(x, b))
-            rec["plain_ms"] = cuda_ms(lambda: ops.fused_leaky_relu_plain(x, b))
-            rec["library_ms"] = None
+            rec.update(time_calls(lambda: ops.fused_leaky_relu(x, b),
+                                  lambda: ops.fused_leaky_relu_plain(x, b), None, iters=30))
             rec["bound_ms"], rec["bound_by"] = bound(x.numel() * esize + c * esize,
                                                      got.numel() * esize, got.numel() * 4)
             records.append(rec)
@@ -214,9 +257,7 @@ def _training_record(kernel, x, dtype, weight, got, ref32, fns, in_bytes, out_by
     kernel_fn, plain_fn, lib_fn = fns
     rec = dict(kernel=kernel, what="training", shape=list(x.shape), dtype=_dtname(dtype),
                launches_per_iteration=weight, **compare(got, ref32, dtype))
-    rec["kernel_ms"] = cuda_ms(kernel_fn, iters=20)
-    rec["plain_ms"] = cuda_ms(plain_fn, iters=20)
-    rec["library_ms"] = None if lib_fn is None else cuda_ms(lib_fn, iters=20)
+    rec.update(time_calls(kernel_fn, plain_fn, lib_fn, iters=20))
     rec["bound_ms"], rec["bound_by"] = bound(in_bytes, out_bytes, flops)
     emit(rec)
     require(rec["ok"], f"{kernel} {rec['shape']} {dtype}: {rec['max_abs_diff']}")
@@ -579,25 +620,31 @@ def training_phase(ops, train, trainer, iters, dtype_name, per_iteration):
     return launches
 
 
+# Summary key -> record key, summed per iteration or per forward.
+SUMMED = {"ms": "kernel_ms", "device_ms": "device_ms", "host_us": "host_us",
+          "plain_ms": "plain_ms", "bound_ms": "bound_ms", "library_ms": "library_ms",
+          "library_device_ms": "library_device_ms", "library_host_us": "library_host_us"}
+
+
 def _weighted_sums(recs, weight_key):
-    """ms, plain_ms, bound_ms, library_ms over ``recs``, each record counted
-    as often as ``weight_key`` says; None for the whole path when it does
-    not run the kernel, and library_ms None where a record has no library
+    """The SUMMED keys over ``recs``, each record counted as often as
+    ``weight_key`` says; None for the whole path when it does not run the
+    kernel, and the library_* keys None where a record has no library
     call."""
-    if not recs:
-        return dict(ms=None, plain_ms=None, bound_ms=None, library_ms=None)
-    total = lambda key: sum(r[key] * r[weight_key] for r in recs)  # noqa: E731
-    lib = None if any(r["library_ms"] is None for r in recs) else total("library_ms")
-    return dict(ms=total("kernel_ms"), plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
-                library_ms=lib)
+    out = {}
+    for key, rec_key in SUMMED.items():
+        vals = [r[rec_key] for r in recs]
+        out[key] = (None if not recs or any(v is None for v in vals)
+                    else sum(v * r[weight_key] for v, r in zip(vals, recs)))
+    return out
 
 
 def summary(records, launches, inference_launches):
-    """One line per kernel.  ms, plain_ms, bound_ms and library_ms are those
-    of one float32 training iteration without regulariser at batch 16 (the
-    kernel-phase records of every training shape, each counted as often as
-    the iteration launches it); the forward_* keys are those of one batch-8
-    inference forward.  ``launches`` counts the float32 training run,
+    """One line per kernel.  The SUMMED keys are those of one float32
+    training iteration without regulariser at batch 16 (the kernel-phase
+    records of every training shape, each counted as often as the iteration
+    launches it); the forward_* keys are those of one batch-8 inference
+    forward.  ``launches`` counts the float32 training run,
     ``launches_inference`` one batch-8 forward."""
     kernels = []
     for name, info in KERNEL_INFO.items():
@@ -615,9 +662,10 @@ def summary(records, launches, inference_launches):
             **_weighted_sums(train_recs, "launches_per_iteration"),
             bound_by="bytes" if all(r["bound_by"] == "bytes" for r in train_recs) else "operations",
             **{f"forward_{k}": v for k, v in fwd.items()},
-            note=(f"ms, plain_ms, bound_ms, library_ms: one float32 training iteration without "
-                  f"regulariser, batch {TRAIN_BATCH}; forward_*: one float32 inference forward, "
-                  f"batch {BATCH}"),
+            note=(f"ms, device_ms, host_us, plain_ms, bound_ms, library_*: one float32 training "
+                  f"iteration without regulariser, batch {TRAIN_BATCH}; forward_*: one float32 "
+                  f"inference forward, batch {BATCH}; ms: events around eager calls; device_ms: "
+                  f"CUDA-graph replay; host_us: host time of the eager calls"),
         ))
     return {"kernels": kernels}
 

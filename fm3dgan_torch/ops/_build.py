@@ -7,7 +7,13 @@ repository root (listed in ``.gitignore``).  The file name carries a hash of
 the source, so an edited kernel is rebuilt and an unchanged one is reused.
 
 Every C entry returns ``cudaGetLastError()`` after its launch; the wrappers
-call :func:`check` on it and raise if it is not 0.
+call it through :func:`launch`, which raises if it is not 0.
+
+The host path of a launch is kept lean, since at small shapes it is longer
+than the kernel: FIR taps are ready ctypes arrays built once per value
+(:func:`host_taps`), :func:`launch` switches devices only when the tensor
+is not on the current one and passes the current stream's raw handle
+without building a ``torch.cuda.Stream``.
 """
 
 from __future__ import annotations
@@ -20,7 +26,10 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
@@ -41,10 +50,10 @@ SIGNATURES = {
     "upfirdn2d": {
         # x, y, taps(host float[kh*kw]), dtype, NC, H, W, kh, kw, p0, p1, stream
         "fm_blur": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-        # x, y, kcol(host), krow(host), dtype, NC, H, W, k, p0, stream
-        "fm_upsample2x": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-        # x, y, kcol(host), krow(host), dtype, NC, H, W, k, p0, p1, stream
-        "fm_downsample2x": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        # x, y, phases(host Up2Phases), dtype, NC, H, W, stream
+        "fm_upsample2x": [_P, _P, _P, _I, _I, _I, _I, _P],
+        # x, y, params(host Down2Params), dtype, NC, H, W, stream
+        "fm_downsample2x": [_P, _P, _P, _I, _I, _I, _I, _P],
     },
     "fused_act": {
         # x, bias (or NULL), y, dtype, total, C, HW, slope, scale, stream
@@ -130,11 +139,6 @@ def library(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
-def check(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err} at launch")
-
-
 # A process-wide flag, not a thread-local one: autograd runs the backward of
 # CUDA nodes on a thread of its own per device, and the backward Functions
 # must see the switch there too.
@@ -168,24 +172,72 @@ def use_kernel(x) -> bool:
     raise RuntimeError(f"fm3dgan_torch runs on cpu or cuda, not {kind}")
 
 
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
 def dtype_code(x) -> int:
-    import torch
-
-    if x.dtype == torch.float32:
-        return 0
-    if x.dtype == torch.bfloat16:
-        return 1
-    raise TypeError(f"CUDA kernels take float32 or bfloat16, not {x.dtype}")
+    code = _DTYPE_CODES.get(x.dtype)
+    if code is None:
+        raise TypeError(f"CUDA kernels take float32 or bfloat16, not {x.dtype}")
+    return code
 
 
-def check_input(x, what: str) -> None:
-    """Raise unless ``x`` is a tensor the CUDA kernels take."""
-    dtype_code(x)
+def check_input(x, what: str) -> int:
+    """Raise unless ``x`` is a tensor the CUDA kernels take; return its dtype
+    code."""
+    code = dtype_code(x)
     if not x.is_contiguous():
         raise ValueError(f"{what}: input must be a contiguous NCHW tensor")
+    return code
 
 
-def stream_of(x) -> int:
-    import torch
+def launch(fn, x, *args) -> None:
+    """Call the C entry ``fn(*args, stream)`` on ``x``'s device and its
+    current stream (the raw handle); raise if it reports a CUDA error."""
+    dev = x.get_device()
+    if dev != torch._C._cuda_getDevice():
+        with torch.cuda.device(dev):
+            return launch(fn, x, *args)
+    err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__}: CUDA error {err} at launch")
 
-    return torch.cuda.current_stream(x.device).cuda_stream
+
+class HostTaps:
+    """FIR taps as the C entries take them: ``array`` (float32, read-only),
+    ``c_array`` (a ctypes copy) and its ``address``, built once per value by
+    :func:`host_taps`; ``flipped`` is the adjoint's taps (every axis
+    reversed), built once too."""
+
+    __slots__ = ("array", "key", "c_array", "address", "_flipped")
+
+    def __init__(self, array: np.ndarray, key: Tuple):
+        self.array = array
+        self.key = key
+        self.c_array = (ctypes.c_float * array.size).from_buffer_copy(array)
+        self.address = ctypes.addressof(self.c_array)
+        self._flipped: Optional[HostTaps] = None
+
+    @property
+    def flipped(self) -> "HostTaps":
+        if self._flipped is None:
+            self._flipped = host_taps(np.flip(self.array))
+        return self._flipped
+
+
+_taps: Dict[Tuple, HostTaps] = {}
+
+
+def host_taps(k) -> HostTaps:
+    """The :class:`HostTaps` of ``k`` (a sequence or array, or HostTaps),
+    one object per distinct shape and float32 bytes."""
+    if isinstance(k, HostTaps):
+        return k
+    a = np.ascontiguousarray(k, dtype=np.float32)
+    key = (a.shape, a.tobytes())
+    taps = _taps.get(key)
+    if taps is None:
+        a = a.copy()
+        a.setflags(write=False)
+        taps = _taps.setdefault(key, HostTaps(a, key))
+    return taps

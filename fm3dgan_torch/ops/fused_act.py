@@ -59,7 +59,7 @@ def _launch_fwd(x, bias, negative_slope, scale):
     """K1 on a CUDA tensor, the plain version on a CPU tensor."""
     if not _build.use_kernel(x):
         return fused_leaky_relu_plain(x, bias, negative_slope, scale)
-    _build.check_input(x, "fused_leaky_relu")
+    code = _build.check_input(x, "fused_leaky_relu")
     if x.dim() < 2:
         raise ValueError("fused_leaky_relu takes [N, C, ...] input")
     c = x.shape[1]
@@ -72,13 +72,11 @@ def _launch_fwd(x, bias, negative_slope, scale):
             )
         bias = bias.contiguous()
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        err = _build.library("fused_act").fm_fused_leaky_relu(
-            x.data_ptr(), None if bias is None else bias.data_ptr(), y.data_ptr(),
-            _build.dtype_code(x), x.numel(), c, hw,
-            float(negative_slope), float(scale), _build.stream_of(x),
-        )
-    _build.check(err, "fm_fused_leaky_relu")
+    _build.launch(
+        _build.library("fused_act").fm_fused_leaky_relu, x,
+        x.data_ptr(), None if bias is None else bias.data_ptr(), y.data_ptr(),
+        code, x.numel(), c, hw, float(negative_slope), float(scale),
+    )
     fused_leaky_relu.launches += 1
     return y
 
@@ -88,19 +86,18 @@ def _launch_bwd(grad, out, negative_slope, scale):
     if not _build.use_kernel(out):
         return fused_leaky_relu_bwd_plain(grad, out, negative_slope, scale)
     _build.check_input(grad, "fused_leaky_relu_bwd grad")
-    _build.check_input(out, "fused_leaky_relu_bwd out")
+    code = _build.check_input(out, "fused_leaky_relu_bwd out")
     if grad.shape != out.shape or grad.dtype != out.dtype or grad.device != out.device:
         raise ValueError(
             f"fused_leaky_relu_bwd: grad {tuple(grad.shape)} {grad.dtype} and out "
             f"{tuple(out.shape)} {out.dtype} must match"
         )
     dx = torch.empty_like(grad)
-    with torch.cuda.device(out.device):
-        err = _build.library("fused_act").fm_fused_leaky_relu_bwd(
-            grad.data_ptr(), out.data_ptr(), dx.data_ptr(), _build.dtype_code(out),
-            out.numel(), float(negative_slope), float(scale), _build.stream_of(out),
-        )
-    _build.check(err, "fm_fused_leaky_relu_bwd")
+    _build.launch(
+        _build.library("fused_act").fm_fused_leaky_relu_bwd, out,
+        grad.data_ptr(), out.data_ptr(), dx.data_ptr(), code,
+        out.numel(), float(negative_slope), float(scale),
+    )
     fused_leaky_relu_bwd.launches += 1
     return dx
 

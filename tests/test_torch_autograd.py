@@ -22,9 +22,18 @@ import torch
 
 from fm3dgan.ops.pallas import fused_act_kernel as pk
 from fm3dgan.ops.pallas.upfirdn2d_kernel import blur_pallas, resample2x_pallas
+from fm3dgan.ops.upfirdn2d import upfirdn2d as jax_upfirdn2d
 from fm3dgan_torch import ops
 from fm3dgan_torch.ops import _build
-from torch_port_utils import assert_close, nchw
+from torch_port_utils import (
+    EDGE_K,
+    EDGE_SIZES,
+    assert_close,
+    down2_edge_pads,
+    edge_taps,
+    nchw,
+    pallas_takes_down2,
+)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 K4 = ops.make_kernel([1, 3, 3, 1])
@@ -91,6 +100,68 @@ def test_downsample2x_and_adjoint_match_pallas_vjp(c, pad):
     else:
         with pytest.raises(NotImplementedError):
             _port_vjp(lambda t: ops.downsample2x(t, DOWN_TAPS, pad), x, g)
+
+
+def _down2_adjoint_exists(h, w, k, pad):
+    oh, ow = (h + sum(pad) - k) // 2 + 1, (w + sum(pad) - k) // 2 + 1
+    return h == 2 * oh and w == 2 * ow
+
+
+@pytest.mark.parametrize("hw", EDGE_SIZES, ids=lambda hw: f"{hw[0]}x{hw[1]}")
+@pytest.mark.parametrize("k", EDGE_K)
+def test_resample2x_edge_grid_adjoints_match_xla_vjp(k, hw):
+    """The up2 adjoint (down2) at every legal pad and the down2 adjoint (up2)
+    wherever H = 2*OH, against the VJP of the XLA ``upfirdn2d``; elsewhere
+    the down2 adjoint raises NotImplementedError."""
+    taps = edge_taps(k)
+    k2d = jnp.asarray(np.outer(taps, taps))
+    x = _x((2, *hw, 3), 10 * k + hw[1])
+    g = _x((2, 2 * hw[0], 2 * hw[1], 3), k)
+    for p0 in range(k):
+        pad = (p0, k - 1 - p0)
+        want_y, want_dx = _jax_vjp(lambda t: jax_upfirdn2d(t, k2d, up=2, pad=pad), x, g)
+        got_y, got_dx = _port_vjp(lambda t: ops.upsample2x(t, taps, pad), x, g)
+        assert_close(got_y, want_y, what=f"up2 k={k} {hw} {pad}", **TOL)
+        assert_close(got_dx, want_dx, what=f"up2 adjoint k={k} {hw} {pad}", **TOL)
+    for pad in down2_edge_pads(k):
+        if hw[0] + sum(pad) - k < 0 or hw[1] + sum(pad) - k < 0:
+            continue  # empty output: test_torch_ops expects ValueError
+        oh, ow = (hw[0] + sum(pad) - k) // 2 + 1, (hw[1] + sum(pad) - k) // 2 + 1
+        g = _x((2, oh, ow, 3), k + 1)
+        fn = lambda t: ops.downsample2x(t, taps, pad)  # noqa: E731
+        if not _down2_adjoint_exists(*hw, k, pad):
+            with pytest.raises(NotImplementedError):
+                _port_vjp(fn, x, g)
+            continue
+        want_y, want_dx = _jax_vjp(lambda t: jax_upfirdn2d(t, k2d, down=2, pad=pad), x, g)
+        got_y, got_dx = _port_vjp(fn, x, g)
+        assert_close(got_y, want_y, what=f"down2 k={k} {hw} {pad}", **TOL)
+        assert_close(got_dx, want_dx, what=f"down2 adjoint k={k} {hw} {pad}", **TOL)
+
+
+@pytest.mark.parametrize("k", EDGE_K)
+def test_resample2x_edge_adjoints_match_pallas_vjp(k):
+    """The adjoints against ``resample2x_pallas``'s custom VJP in interpret
+    mode, at one H != W shape that has a down2 adjoint, for every up2 pad and
+    every down2 pad whose adjoint exists and where ``_updown_pallas`` takes
+    both the pad and its adjoint's (up2 at pads (k-p0-1, p0))."""
+    taps = edge_taps(k)
+    jtaps = tuple(float(v) for v in taps)
+    x = _x((2, 8, 10, 3), k + 2)
+    g = _x((2, 16, 20, 3), k + 3)
+    for p0 in range(k):
+        want_y, want_dx = _jax_vjp(
+            lambda t: resample2x_pallas(t, jtaps, jtaps, 2, 1, p0, k - 1 - p0), x, g)
+        got_y, got_dx = _port_vjp(lambda t: ops.upsample2x(t, taps, (p0, k - 1 - p0)), x, g)
+        assert_close(got_dx, want_dx, what=f"up2 adjoint vs pallas k={k} p0={p0}", **TOL)
+    for pad in down2_edge_pads(k):
+        if not (pallas_takes_down2(8, 10, k, *pad) and k - pad[0] - 1 >= 0
+                and _down2_adjoint_exists(8, 10, k, pad)):
+            continue
+        gd = _x((2, 4, 5, 3), k + 4)
+        _, want_dx = _jax_vjp(lambda t: resample2x_pallas(t, jtaps, jtaps, 1, 2, *pad), x, gd)
+        _, got_dx = _port_vjp(lambda t: ops.downsample2x(t, taps, pad), x, gd)
+        assert_close(got_dx, want_dx, what=f"down2 adjoint vs pallas k={k} {pad}", **TOL)
 
 
 @pytest.mark.parametrize("shape", [(2, 4, 4, 16), (3, 32)])

@@ -67,6 +67,80 @@ def test_kernels_match_plain(cuda_device, dtype):
     _check(ops.fused_leaky_relu_bwd(odd, -odd), ops.fused_leaky_relu_bwd_plain(odd.float(), -odd), dtype)
 
 
+# The 2x resampling edge grid: tap counts, and sizes that are multiples of
+# no kernel tile (32 x 8 quads for up2, 64 x 16 outputs for down2), H != W
+# and odd widths (down2's scalar stores) among them.
+EDGE_K = (2, 3, 4, 5, 8)
+EDGE_SIZES = ((1, 1), (2, 2), (3, 3), (7, 7), (9, 9), (17, 17), (33, 33), (129, 129),
+              (7, 33), (33, 2), (5, 130), (130, 67))
+
+
+def _edge_taps(k):
+    return np.random.RandomState(k).uniform(-1, 2, k).astype(np.float32)
+
+
+def _down2_pads(k):
+    return ((0, 0), (1, 1), (2, 1), (k - 1, k - 1), (-1, 2), (2, -1), (-2, -1))
+
+
+def _at_odd_offset(x):
+    """x's values in a contiguous tensor whose storage starts one element in,
+    so no pointer into it is aligned for vector access."""
+    t = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:].view(x.shape)
+    return t.copy_(x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", EDGE_K)
+def test_resample2x_kernels_edge_grid_match_plain(cuda_device, dtype, k):
+    """K4 at every legal pad and K5 at pads up to k - 1, negative ones
+    included, on the edge grid, from aligned and misaligned inputs; and the
+    gradients through both where the adjoint exists (fp32)."""
+    taps = _edge_taps(k)
+    g = torch.Generator(device=cuda_device).manual_seed(k)
+    ops.reset_launches()
+    n_up = n_down = 0
+    for h, w in EDGE_SIZES:
+        x = torch.randn(2, 3, h, w, device=cuda_device, generator=g).to(dtype)
+        for xs in (x, _at_odd_offset(x)):
+            for p0 in range(k):
+                pad = (p0, k - 1 - p0)
+                _check(ops.upsample2x(xs, taps, pad), ops.upsample2x_plain(xs.float(), taps, pad),
+                       dtype)
+                n_up += 1
+            for pad in _down2_pads(k):
+                if h + sum(pad) - k < 0 or w + sum(pad) - k < 0:
+                    continue
+                _check(ops.downsample2x(xs, taps, pad),
+                       ops.downsample2x_plain(xs.float(), taps, pad), dtype)
+                n_down += 1
+    assert ops.launch_counts()["upsample2x"] == n_up
+    assert ops.launch_counts()["downsample2x"] == n_down
+    if dtype != torch.float32:
+        return
+    for h, w in ((8, 10), (34, 66), (130, 132)):
+        x = torch.randn(2, 3, h, w, device=cuda_device, generator=g)
+        cases = [(ops.upsample2x, (p0, k - 1 - p0)) for p0 in range(k)]
+        cases += [(ops.downsample2x, pad) for pad in _down2_pads(k)
+                  if (h + sum(pad) - k) // 2 + 1 == h // 2 and (w + sum(pad) - k) // 2 + 1 == w // 2]
+        for fn, pad in cases:
+            got = _first_and_second_order(lambda t: fn(t * t, taps, pad), x, [])
+            with ops.plain_versions():
+                want = _first_and_second_order(lambda t: fn(t * t, taps, pad), x, [])
+            for a, b in zip(got, want):
+                torch.testing.assert_close(a, b, atol=1e-5 * float(b.abs().max()) + 1e-12, rtol=0)
+
+
+@pytest.mark.gpu
+def test_resample2x_kernels_loop_over_more_planes_than_the_grid_holds(cuda_device):
+    """N*C above gridDim.z's 65535: each block loops over planes."""
+    x = torch.randn(2, 40000, 3, 5, device=cuda_device)
+    taps = _edge_taps(4)
+    _check(ops.upsample2x(x, taps, (2, 1)), ops.upsample2x_plain(x, taps, (2, 1)), x.dtype)
+    _check(ops.downsample2x(x, taps, (1, 2)), ops.downsample2x_plain(x, taps, (1, 2)), x.dtype)
+
+
 @pytest.mark.gpu
 def test_kernels_raise_on_what_they_do_not_take(cuda_device):
     x = torch.randn(1, 4, 9, 9, device=cuda_device)

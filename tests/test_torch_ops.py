@@ -5,6 +5,7 @@ On a CPU tensor the kernel wrappers run their plain versions;
 tests/test_torch_cuda.py holds the CUDA kernels against those on the card.
 """
 
+import ctypes
 import importlib
 import math
 
@@ -14,11 +15,25 @@ import pytest
 import torch
 
 from fm3dgan.ops import fused_act as jax_fused_act
-from fm3dgan.ops.pallas.upfirdn2d_kernel import resample2x_pallas, upfirdn2d_pallas_maybe
+from fm3dgan.ops.pallas.upfirdn2d_kernel import (
+    _phase_taps,
+    resample2x_pallas,
+    upfirdn2d_pallas_maybe,
+)
 from fm3dgan_torch import ops
-from torch_port_utils import assert_close, nchw
+from fm3dgan_torch.ops import _build
+from torch_port_utils import (
+    EDGE_K,
+    EDGE_SIZES,
+    assert_close,
+    down2_edge_pads,
+    edge_taps,
+    nchw,
+    pallas_takes_down2,
+)
 
 jax_upfirdn = importlib.import_module("fm3dgan.ops.upfirdn2d")
+port_upfirdn = importlib.import_module("fm3dgan_torch.ops.upfirdn2d")
 TOL = dict(atol=1e-5, rtol=1e-5)
 K4 = ops.make_kernel([1, 3, 3, 1])
 UP_TAPS = (0.25, 0.75, 0.75, 0.25)  # [1,3,3,1] / 8 * 2: outer = make_kernel * 4
@@ -127,3 +142,87 @@ def test_wrappers_on_cpu_launch_nothing():
         "fused_leaky_relu_bwd": 0, "downsample2x": 0,
     }
 
+
+
+def _xla_resample(x, taps, up, down, pad):
+    k2d = jnp.asarray(np.outer(taps, taps))
+    return np.asarray(jax_upfirdn.upfirdn2d(jnp.asarray(x), k2d, up=up, down=down, pad=pad))
+
+
+@pytest.mark.parametrize("hw", EDGE_SIZES, ids=lambda hw: f"{hw[0]}x{hw[1]}")
+@pytest.mark.parametrize("k", EDGE_K)
+def test_resample2x_edge_grid_matches_xla(k, hw):
+    """upsample2x at every legal pad and downsample2x at pads up to k - 1,
+    negative ones included, at sizes that are multiples of no kernel tile;
+    an empty down2 output raises ValueError."""
+    taps = edge_taps(k)
+    x = _x((2, *hw, 3), 10 * k + hw[0])
+    for p0 in range(k):
+        want = _xla_resample(x, taps, 2, 1, (p0, k - 1 - p0))
+        got = _port(ops.upsample2x, x, taps, (p0, k - 1 - p0))
+        assert_close(got, want, what=f"up2 k={k} {hw} p0={p0}", **TOL)
+    for pad in down2_edge_pads(k):
+        if hw[0] + sum(pad) - k < 0 or hw[1] + sum(pad) - k < 0:
+            with pytest.raises(ValueError):
+                ops.downsample2x(nchw(x), taps, pad)
+            continue
+        want = _xla_resample(x, taps, 1, 2, pad)
+        assert_close(_port(ops.downsample2x, x, taps, pad), want, what=f"down2 k={k} {hw} {pad}", **TOL)
+
+
+@pytest.mark.parametrize("k", EDGE_K)
+def test_resample2x_edge_pads_match_pallas(k):
+    """Every up2 pad and every down2 pad ``_updown_pallas`` takes (p0 >= 0),
+    in interpret mode, at one odd H != W shape."""
+    taps = edge_taps(k)
+    x = _x((2, 7, 9, 3), k)
+    jtaps = tuple(float(v) for v in taps)
+    for p0 in range(k):
+        want = resample2x_pallas(jnp.asarray(x), jtaps, jtaps, 2, 1, p0, k - 1 - p0)
+        got = _port(ops.upsample2x, x, taps, (p0, k - 1 - p0))
+        assert_close(got, want, what=f"up2 vs pallas k={k} p0={p0}", **TOL)
+    for pad in down2_edge_pads(k):
+        if pallas_takes_down2(7, 9, k, *pad):
+            want = resample2x_pallas(jnp.asarray(x), jtaps, jtaps, 1, 2, *pad)
+            got = _port(ops.downsample2x, x, taps, pad)
+            assert_close(got, want, what=f"down2 vs pallas k={k} {pad}", **TOL)
+
+
+def test_host_taps_cache():
+    """One HostTaps per distinct value, whatever container carries it; the
+    flipped and the other taps are other objects; the ctypes array holds
+    the float32 bits of the taps."""
+    k = [0.1, 0.7, 0.3, -0.2]
+    taps = _build.host_taps(k)
+    assert _build.host_taps(tuple(k)) is taps
+    assert _build.host_taps(np.asarray(k, np.float64)) is taps
+    assert _build.host_taps(taps) is taps
+    assert taps.flipped is not taps and taps.flipped is _build.host_taps(k[::-1])
+    assert taps.flipped.flipped is taps
+    assert _build.host_taps([0.1, 0.7, 0.3, -0.25]) is not taps
+    assert _build.host_taps(np.outer(k, k)) is not _build.host_taps(np.outer(k, k).ravel())
+    want = np.float32(k).view(np.uint32)
+    np.testing.assert_array_equal(np.frombuffer(taps.c_array, np.float32).view(np.uint32), want)
+    np.testing.assert_array_equal(taps.array.view(np.uint32), want)
+    assert taps.address == ctypes.addressof(taps.c_array)
+    assert not taps.array.flags.writeable
+
+
+@pytest.mark.parametrize("k", range(1, 9))
+def test_up2_phase_table_matches_pallas_phase_taps(k):
+    """K4's phase table (offsets from ``base``, phase 1 shifted by
+    ``shift1``, zero-padded to ``nt``) holds the taps of ``_phase_taps``,
+    and its window is at most ceil(k/2) + 1 inputs wide."""
+    taps = edge_taps(k)
+    for p0 in range(k):
+        want = _phase_taps(tuple(float(v) for v in taps), 2, p0)
+        assert port_upfirdn.phase_taps(taps, p0) == want
+        table, address = port_upfirdn.up2_phases(_build.host_taps(taps), p0)
+        assert port_upfirdn.up2_phases(_build.host_taps(taps), p0)[0] is table
+        assert address == ctypes.addressof(table)
+        assert table.nt == (k + 1) // 2 and table.nt + table.shift1 <= (k + 1) // 2 + 1
+        for a, phase in enumerate(want):
+            start = table.base + (table.shift1 if a else 0)
+            got = [(start + j, table.w[a][j]) for j in range(len(phase))]
+            assert got == [(o, float(np.float32(w))) for o, w in phase], (k, p0, a)
+            assert all(table.w[a][j] == 0.0 for j in range(len(phase), 4))

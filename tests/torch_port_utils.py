@@ -64,6 +64,31 @@ def to_nhwc(t):
     return t.detach().permute(0, 2, 3, 1).numpy()
 
 
+# ---- the 2x resampling edge grid (tests/test_torch_{ops,autograd}.py) -------
+
+# Tap counts and sizes that are multiples of no kernel tile, H != W among them.
+EDGE_K = (2, 3, 4, 5, 8)
+EDGE_SIZES = ((1, 1), (2, 2), (3, 3), (7, 7), (9, 9), (17, 17), (33, 33), (129, 129),
+              (7, 33), (33, 2))
+
+
+def edge_taps(k):
+    """Asymmetric float32 taps, so a missing flip shows."""
+    return np.random.RandomState(k).uniform(-1, 2, k).astype(np.float32)
+
+
+def down2_edge_pads(k):
+    """Pads of downsample2x: none, the ToRGB skip adjoint's, up to k - 1, and
+    negative ones (a crop)."""
+    return ((0, 0), (1, 1), (2, 1), (k - 1, k - 1), (-1, 2), (2, -1), (-2, -1))
+
+
+def pallas_takes_down2(h, w, k, p0, p1):
+    """``_updown_pallas`` in mode down2 takes a non-empty output with p0 >= 0
+    (a negative p0 makes its DMA offset negative)."""
+    return p0 >= 0 and h + p0 + p1 - k >= 0 and w + p0 + p1 - k >= 0
+
+
 def assert_close(got, want, atol, rtol, what=""):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     assert got.shape == want.shape, (what, got.shape, want.shape)
