@@ -26,10 +26,19 @@ version on a CPU tensor (and under ``plain_versions()``) and launches the
 kernel on a CUDA tensor or raises for a configuration it does not take; so
 the CPU runs the same autograd wiring as the card.  FIR kernels are host
 constants (sequences or numpy arrays), as the TPU kernels needed static taps;
-each distinct value becomes one cached ``_build.HostTaps``.  up2 and down2
-go through their Function only where autograd records (an input that
-requires grad, grad mode on), and are launched directly otherwise: the
-Function's host cost is larger than the kernel at the ToRGB skip's shapes.
+each distinct value becomes one cached ``_build.HostTaps``, which also keeps
+a 2-D kernel's rank-1 factors.  blur, up2 and down2 go through their
+Function only where autograd records (an input that requires grad, grad mode
+on), and are launched directly otherwise: the Function's host cost is
+larger than the kernel at the small shapes.
+
+The blur kernel stages a tile of each plane in shared memory and sums a
+square kernel's taps row by row, column by column, the plain version's
+order to the bit; from 5 x 5 taps up it filters rows, then columns, when
+the taps are rank-1 (``_build.HostTaps.factors``), as the TPU kernel does.
+StyleGAN2's 4 x 4 ``make_kernel`` taps keep the 2-D order: the separable
+order's other rounding moved noise-dominated 256 px R1 gradients past
+their bar (``csrc/upfirdn2d.cu``).
 """
 
 from __future__ import annotations
@@ -200,8 +209,9 @@ def _launch_blur(x: torch.Tensor, taps: "_build.HostTaps", p0: int, p1: int) -> 
     if oh <= 0 or ow <= 0:
         raise ValueError(f"blur output would be empty: {(oh, ow)}")
     y = torch.empty((n, c, oh, ow), dtype=x.dtype, device=x.device)
+    factors = taps.factors if kh == kw else None  # the kernel's separable path is square
     _build.launch(_build.library("upfirdn2d").fm_blur, x, x.data_ptr(), y.data_ptr(),
-                  taps.address, code, n * c, h, w, kh, kw, p0, p1)
+                  taps.address, factors and factors.address, code, n * c, h, w, kh, kw, p0, p1)
     blur.launches += 1
     return y
 
@@ -245,6 +255,12 @@ def _records_grad(x: torch.Tensor) -> bool:
     return x.requires_grad and torch.is_grad_enabled()
 
 
+def _blur(x, taps, p0, p1):
+    if _records_grad(x):
+        return _BlurFn.apply(x, taps, p0, p1)
+    return _launch_blur(x, taps, p0, p1)
+
+
 def _up2(x, taps, p0, p1):
     if _records_grad(x):
         return _Upsample2xFn.apply(x, taps, p0, p1)
@@ -270,7 +286,7 @@ class _BlurFn(torch.autograd.Function):
         if kh != kw:
             raise NotImplementedError("the blur adjoint takes square kernels (_blur_bwd)")
         p0, p1 = ctx.pads
-        return _BlurFn.apply(grad.contiguous(), taps.flipped, kh - 1 - p0, kh - 1 - p1), None, None, None
+        return _blur(grad.contiguous(), taps.flipped, kh - 1 - p0, kh - 1 - p1), None, None, None
 
 
 class _Upsample2xFn(torch.autograd.Function):
@@ -310,11 +326,10 @@ def blur(x: torch.Tensor, kernel, pad, upsample_factor: int = 1) -> torch.Tensor
 
     Replaces fm3dgan/ops/pallas/upfirdn2d_kernel.py ``_blur_pallas`` and its
     adjoint ``_blur_bwd``; on a CUDA tensor it launches ``fm_blur`` (any C,
-    kernel <= 8x8, 0 <= p < k)."""
-    k = np.asarray(kernel, np.float32)
+    kernel <= 8x8, 0 <= p < min(kh, kw))."""
     if upsample_factor > 1:
-        k = k * (upsample_factor**2)
-    return _BlurFn.apply(x, _build.host_taps(k), int(pad[0]), int(pad[1]))
+        kernel = np.asarray(kernel, np.float32) * (upsample_factor**2)
+    return _blur(x, _build.host_taps(kernel), int(pad[0]), int(pad[1]))
 
 
 def upsample2x(x: torch.Tensor, kernel_1d, pad) -> torch.Tensor:

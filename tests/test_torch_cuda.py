@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from fm3dgan_torch import ops
+from fm3dgan_torch.ops import _build
 from fm3dgan_torch.pipeline import FaceManipulator, forward_3_encoder
 from fm3dgan_torch.train import TrainConfig, Trainer, steps
 
@@ -130,6 +131,85 @@ def test_resample2x_kernels_edge_grid_match_plain(cuda_device, dtype, k):
                 want = _first_and_second_order(lambda t: fn(t * t, taps, pad), x, [])
             for a, b in zip(got, want):
                 torch.testing.assert_close(a, b, atol=1e-5 * float(b.abs().max()) + 1e-12, rtol=0)
+
+
+# The blur edge grid: sizes that are multiples of no tile width (8, 16, 32)
+# or height (8 to 256 rows), H != W, odd widths, and the shapes of the model
+# (9, 17, 129, 257).
+BLUR_SIZES = ((1, 1), (9, 9), (17, 17), (129, 129), (257, 257), (33, 2), (130, 67), (5, 130))
+
+
+def _blur_edge_kernels(k):
+    """A rank-1 k x k kernel with exact float32 entries (the separable
+    path), a rank-2 k x k kernel (k > 1) and a k x (9 - k) kernel (the 2-D
+    path); tests/torch_port_utils.py ``blur_edge_kernels``."""
+    rng = np.random.RandomState(k)
+    kernels = [np.outer(rng.randint(1, 5, k), rng.randint(1, 5, k)).astype(np.float32) / 64]
+    if k > 1:
+        kernels.append(rng.uniform(-1, 2, (k, k)).astype(np.float32))
+    kernels.append(rng.uniform(-1, 2, (k, 9 - k)).astype(np.float32))
+    return kernels
+
+
+def _pads(kern):
+    m = min(kern.shape)
+    return [(p0, p1) for p0 in range(m) for p1 in range(m)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", range(1, 9))
+def test_blur_kernel_edge_grid_matches_plain(cuda_device, dtype, k):
+    """K3's separable path (rank-1 square taps) and 2-D path (rank-2 and
+    non-square taps) at every pad pair on the edge grid, from aligned and
+    misaligned inputs, one launch per call; and the first- and second-order
+    gradients through the blur and its adjoint (fp32)."""
+    kernels = _blur_edge_kernels(k)
+    assert _build.host_taps(kernels[0]).factors is not None
+    assert all(_build.host_taps(kern).factors is None for kern in kernels[1:-1])
+    g = torch.Generator(device=cuda_device).manual_seed(k)
+    ops.reset_launches()
+    n = 0
+    for h, w in BLUR_SIZES:
+        x = torch.randn(2, 3, h, w, device=cuda_device, generator=g).to(dtype)
+        for xs in (x, _at_odd_offset(x)):
+            for kern in kernels:
+                for pad in _pads(kern):
+                    if h + sum(pad) < kern.shape[0] or w + sum(pad) < kern.shape[1]:
+                        continue  # empty output
+                    _check(ops.blur(xs, kern, pad), ops.blur_plain(xs.float(), kern, pad), dtype)
+                    n += 1
+    assert ops.launch_counts()["blur"] == n
+    if dtype != torch.float32:
+        return
+    for h, w in ((8, 10), (34, 66), (130, 132)):
+        x = torch.randn(2, 3, h, w, device=cuda_device, generator=g)
+        for kern in kernels[:-1]:  # the adjoint takes square taps
+            for pad in sorted({(0, 0), (k - 1, k - 1), (0, k - 1), (k - 1, 0), (k // 2, k // 2)}):
+                # Squared, so the second order runs the blur and its adjoint
+                # again: four launches.
+                fn = lambda t: ops.blur(t * t, kern, pad).square()  # noqa: E731
+                ops.reset_launches()
+                got = _first_and_second_order(fn, x, [])
+                assert ops.launch_counts()["blur"] == 4, ops.launch_counts()
+                ops.reset_launches()
+                with ops.plain_versions():
+                    want = _first_and_second_order(fn, x, [])
+                assert ops.launch_counts()["blur"] == 0, ops.launch_counts()
+                for a, b in zip(got, want):
+                    torch.testing.assert_close(a, b, atol=1e-5 * float(b.abs().max()) + 1e-12, rtol=0)
+
+
+@pytest.mark.gpu
+def test_blur_kernel_loops_over_more_plane_groups_than_the_grid_holds(cuda_device):
+    """More groups of planes than gridDim.z's 65535, one plane per block
+    (33 x 33) and eight (3 x 40), both paths."""
+    for shape in ((2, 40000, 33, 33), (2, 300000, 3, 40)):
+        x = torch.randn(*shape, device=cuda_device)
+        for kern in _blur_edge_kernels(4)[:2]:
+            _check(ops.blur(x, kern, (1, 2)), ops.blur_plain(x, kern, (1, 2)), x.dtype)
+        del x
+        torch.cuda.empty_cache()
 
 
 @pytest.mark.gpu

@@ -17,6 +17,7 @@ import torch
 from fm3dgan.ops import fused_act as jax_fused_act
 from fm3dgan.ops.pallas.upfirdn2d_kernel import (
     _phase_taps,
+    blur_pallas,
     resample2x_pallas,
     upfirdn2d_pallas_maybe,
 )
@@ -26,6 +27,7 @@ from torch_port_utils import (
     EDGE_K,
     EDGE_SIZES,
     assert_close,
+    blur_edge_kernels,
     down2_edge_pads,
     edge_taps,
     nchw,
@@ -61,14 +63,82 @@ def test_blur_matches_pallas_blur(h):
 
 @pytest.mark.parametrize(
     "c,pad",
-    [(3, (1, 1)), (32, (2, 1)), (3, (-1, 2)), (32, (1, -2)), (32, (0, 3))],
+    [(3, (1, 1)), (32, (2, 1)), (3, (-1, 2)), (32, (1, -2)), (32, (0, 3)), (3, (3, 0)),
+     (3, (0, 0)), (32, (3, 3))],
 )
 def test_blur_matches_upfirdn2d_asymmetric_kernel(c, pad):
+    """blur_plain at any pad, and the blur wrapper (its plain version on a
+    CPU tensor) at the pads its kernel takes, 0 <= p < k."""
     x = _x((2, 11, 13, c), c)
     k = np.outer([1.0, 2.0, 4.0, 0.5], [0.25, 1.0, 3.0, 2.0]).astype(np.float32)
     want = jax_upfirdn.upfirdn2d(jnp.asarray(x), jnp.asarray(k), pad=pad)
     got = _port(ops.blur_plain, x, k, pad)
     assert_close(got, want, what=f"blur c={c} pad={pad}", **TOL)
+    if min(pad) >= 0 and max(pad) < 4:
+        assert_close(_port(ops.blur, x, k, pad), want, what=f"blur wrapper pad={pad}", **TOL)
+
+
+@pytest.mark.parametrize("k", range(1, 9))
+def test_blur_edge_grid_matches_xla_and_pallas(k):
+    """The blur wrapper on a CPU tensor at every pad pair 0 <= p0, p1 <
+    min(kh, kw) of the edge grid's kernels (rank-1 and rank-2 square,
+    non-square), against the XLA upfirdn2d; and against ``blur_pallas`` in
+    interpret mode at two asymmetric pads of the rank-1 kernel and one of the
+    non-square kernel (C = 128, the Pallas kernel's channel tile)."""
+    x = _x((2, 9, 11, 3), k)
+    kernels = blur_edge_kernels(k)
+    for kern in kernels:
+        kh, kw = kern.shape
+        for p0 in range(min(kh, kw)):
+            for p1 in range(min(kh, kw)):
+                want = jax_upfirdn.upfirdn2d(jnp.asarray(x), jnp.asarray(kern), pad=(p0, p1))
+                got = _port(ops.blur, x, kern, (p0, p1))
+                assert_close(got, want, what=f"blur {kern.shape} pad={(p0, p1)}", **TOL)
+    x = _x((1, 9, 11, 128), k + 10)
+    pallas_cases = {(0, (k - 1, 0)), (0, (0, k - 1)), (-1, (min(k, 9 - k) - 1, 0))}
+    for i, pad in sorted(pallas_cases):
+        kern = kernels[i]
+        kf = tuple(tuple(float(v) for v in row) for row in kern)
+        want = blur_pallas(jnp.asarray(x), kf, *pad)
+        assert_close(_port(ops.blur, x, kern, pad), want, what=f"blur vs pallas {kern.shape} {pad}",
+                     **TOL)
+
+
+def test_blur_taps_factor_when_rank_1():
+    """The blur's separable path: StyleGAN2's kernels factor exactly; a
+    rank-1 kernel within 1e-7 * max|k| (products of the float32 factors
+    taken exactly); a rank-2 kernel, a rank-1 kernel whose total is 0 and 1-D
+    taps do not."""
+    k = ops.make_kernel([1, 3, 3, 1])
+    for scale in (1.0, 4.0):
+        kcol, krow = _build.rank1_factors(k * scale)
+        np.testing.assert_array_equal(kcol, np.float32([1, 3, 3, 1]) / 8 * scale)
+        np.testing.assert_array_equal(krow, np.float32([1, 3, 3, 1]) / 8)
+        np.testing.assert_array_equal(np.outer(kcol, krow), k * scale)
+    for n in range(1, 9):
+        rank1 = blur_edge_kernels(n)[0]
+        kcol, krow = _build.rank1_factors(rank1)
+        assert kcol.dtype == krow.dtype == np.float32
+        err = np.abs(np.outer(kcol.astype(np.float64), krow) - rank1).max()
+        assert err <= 1e-7 * np.abs(rank1).max(), (n, err)
+    for n in range(2, 9):
+        assert _build.rank1_factors(blur_edge_kernels(n)[1]) is None
+    assert _build.rank1_factors(np.outer([1.0, -1.0], [1.0, 2.0]).astype(np.float32)) is None
+    assert _build.rank1_factors(np.float32([0.25, 0.75, 0.75, 0.25])) is None
+
+
+def test_blur_factors_cached_and_reversed_for_the_adjoint():
+    """``HostTaps.factors`` is one cached object; the flipped taps' factors
+    (the blur adjoint's) are the reversed factors, bit for bit."""
+    for kern in (ops.make_kernel([1, 3, 3, 1]) * 4, blur_edge_kernels(5)[0],
+                 np.outer([1.0, 2.0, 4.0, 0.5], [0.25, 1.0, 3.0]).astype(np.float32)):
+        taps = _build.host_taps(kern)
+        kh = kern.shape[0]
+        f, ff = taps.factors, taps.flipped.factors
+        assert taps.factors is f and f.array.size == sum(kern.shape)
+        np.testing.assert_array_equal(ff.array[:kh], f.array[:kh][::-1])
+        np.testing.assert_array_equal(ff.array[kh:], f.array[kh:][::-1])
+    assert _build.host_taps(blur_edge_kernels(4)[1]).factors is None
 
 
 @pytest.mark.parametrize(

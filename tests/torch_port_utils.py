@@ -83,6 +83,19 @@ def down2_edge_pads(k):
     return ((0, 0), (1, 1), (2, 1), (k - 1, k - 1), (-1, 2), (2, -1), (-2, -1))
 
 
+def blur_edge_kernels(k):
+    """The blur edge grid's kernels of size k: a rank-1 k x k kernel with
+    exact float32 entries, which its float32 factors reproduce within one
+    rounding (the card's separable path); a rank-2 k x k kernel (k > 1) and
+    a k x (9 - k) kernel (its 2-D path)."""
+    rng = np.random.RandomState(k)
+    kernels = [np.outer(rng.randint(1, 5, k), rng.randint(1, 5, k)).astype(np.float32) / 64]
+    if k > 1:
+        kernels.append(rng.uniform(-1, 2, (k, k)).astype(np.float32))
+    kernels.append(rng.uniform(-1, 2, (k, 9 - k)).astype(np.float32))
+    return kernels
+
+
 def pallas_takes_down2(h, w, k, p0, p1):
     """``_updown_pallas`` in mode down2 takes a non-empty output with p0 >= 0
     (a negative p0 makes its DMA offset negative)."""
