@@ -21,7 +21,6 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import hashlib
-import math
 import os
 import shutil
 import subprocess
@@ -49,9 +48,8 @@ _I = ctypes.c_int
 # C signatures: every pointer and the stream are void*, sizes are int.
 SIGNATURES = {
     "upfirdn2d": {
-        # x, y, taps(host float[kh*kw]), factors(host float[kh+kw] or NULL),
-        # dtype, NC, H, W, kh, kw, p0, p1, stream
-        "fm_blur": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+        # x, y, taps(host float[kh*kw]), dtype, NC, H, W, kh, kw, p0, p1, stream
+        "fm_blur": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
         # x, y, phases(host Up2Phases), dtype, NC, H, W, stream
         "fm_upsample2x": [_P, _P, _P, _I, _I, _I, _I, _P],
         # x, y, params(host Down2Params), dtype, NC, H, W, stream
@@ -209,10 +207,9 @@ class HostTaps:
     """FIR taps as the C entries take them: ``array`` (float32, read-only),
     ``c_array`` (a ctypes copy) and its ``address``, built once per value by
     :func:`host_taps`; ``flipped`` is the adjoint's taps (every axis
-    reversed), built once too; ``factors``, a 2-D kernel's rank-1 factors
-    ``[kcol, krow]`` as :func:`rank1_factors` finds them, or None."""
+    reversed), built once too."""
 
-    __slots__ = ("array", "key", "c_array", "address", "_flipped", "factors")
+    __slots__ = ("array", "key", "c_array", "address", "_flipped")
 
     def __init__(self, array: np.ndarray, key: Tuple):
         self.array = array
@@ -220,37 +217,12 @@ class HostTaps:
         self.c_array = (ctypes.c_float * array.size).from_buffer_copy(array)
         self.address = ctypes.addressof(self.c_array)
         self._flipped: Optional[HostTaps] = None
-        f = rank1_factors(array)
-        self.factors: Optional[HostTaps] = None if f is None else host_taps(np.concatenate(f))
 
     @property
     def flipped(self) -> "HostTaps":
         if self._flipped is None:
             self._flipped = host_taps(np.flip(self.array))
         return self._flipped
-
-
-def rank1_factors(k: np.ndarray) -> Optional[Tuple[np.ndarray, np.ndarray]]:
-    """float32 ``(kcol, krow)`` with ``kcol (x) krow`` equal to the 2-D
-    kernel ``k`` within 1e-7 * max|k| (the exact products of the float32
-    factors), or None.
-
-    kcol holds the row sums and krow the column sums over the total (the
-    counterpart of the Pallas ``_separate``, without its SVD): exact for
-    StyleGAN2's ``make_kernel`` kernels, and with every sum exactly rounded
-    (``math.fsum``) the factors of the flipped kernel are the reversed
-    factors.  A kernel whose total is 0, or that is not rank-1 to that bound,
-    has none."""
-    if k.ndim != 2:
-        return None
-    a = np.asarray(k, np.float64)
-    total = math.fsum(a.ravel())
-    if total == 0.0:
-        return None
-    kcol = np.array([math.fsum(row) for row in a], np.float32)
-    krow = np.array([math.fsum(col) / total for col in a.T], np.float32)
-    err = np.abs(np.outer(kcol.astype(np.float64), krow) - a).max()
-    return (kcol, krow) if err <= 1e-7 * np.abs(a).max() else None
 
 
 _taps: Dict[Tuple, HostTaps] = {}

@@ -26,19 +26,17 @@ version on a CPU tensor (and under ``plain_versions()``) and launches the
 kernel on a CUDA tensor or raises for a configuration it does not take; so
 the CPU runs the same autograd wiring as the card.  FIR kernels are host
 constants (sequences or numpy arrays), as the TPU kernels needed static taps;
-each distinct value becomes one cached ``_build.HostTaps``, which also keeps
-a 2-D kernel's rank-1 factors.  blur, up2 and down2 go through their
-Function only where autograd records (an input that requires grad, grad mode
-on), and are launched directly otherwise: the Function's host cost is
-larger than the kernel at the small shapes.
+each distinct value becomes one cached ``_build.HostTaps``.  blur, up2 and
+down2 go through their Function only where autograd records (an input that
+requires grad, grad mode on), and are launched directly otherwise: the
+Function's host cost is larger than the kernel at the small shapes.
 
-The blur kernel stages a tile of each plane in shared memory and sums a
-square kernel's taps row by row, column by column, the plain version's
-order to the bit; from 5 x 5 taps up it filters rows, then columns, when
-the taps are rank-1 (``_build.HostTaps.factors``), as the TPU kernel does.
-StyleGAN2's 4 x 4 ``make_kernel`` taps keep the 2-D order: the separable
-order's other rounding moved noise-dominated 256 px R1 gradients past
-their bar (``csrc/upfirdn2d.cu``).
+The blur kernel stages a tile of each plane in shared memory and sums the
+taps row by row, column by column, the plain version's order to the bit.
+Unlike the TPU kernel it does not filter rank-1 taps rows, then columns:
+for StyleGAN2's 4 x 4 ``make_kernel`` taps that order's other rounding
+moved noise-dominated 256 px R1 gradients past their bar
+(``csrc/upfirdn2d.cu``).
 """
 
 from __future__ import annotations
@@ -209,9 +207,8 @@ def _launch_blur(x: torch.Tensor, taps: "_build.HostTaps", p0: int, p1: int) -> 
     if oh <= 0 or ow <= 0:
         raise ValueError(f"blur output would be empty: {(oh, ow)}")
     y = torch.empty((n, c, oh, ow), dtype=x.dtype, device=x.device)
-    factors = taps.factors if kh == kw else None  # the kernel's separable path is square
     _build.launch(_build.library("upfirdn2d").fm_blur, x, x.data_ptr(), y.data_ptr(),
-                  taps.address, factors and factors.address, code, n * c, h, w, kh, kw, p0, p1)
+                  taps.address, code, n * c, h, w, kh, kw, p0, p1)
     blur.launches += 1
     return y
 

@@ -13,7 +13,6 @@ import pytest
 import torch
 
 from fm3dgan_torch import ops
-from fm3dgan_torch.ops import _build
 from fm3dgan_torch.pipeline import FaceManipulator, forward_3_encoder
 from fm3dgan_torch.train import TrainConfig, Trainer, steps
 
@@ -133,16 +132,16 @@ def test_resample2x_kernels_edge_grid_match_plain(cuda_device, dtype, k):
                 torch.testing.assert_close(a, b, atol=1e-5 * float(b.abs().max()) + 1e-12, rtol=0)
 
 
-# The blur edge grid: sizes that are multiples of no tile width (8, 16, 32)
-# or height (8 to 256 rows), H != W, odd widths, and the shapes of the model
-# (9, 17, 129, 257).
+# The blur edge grid: sizes that are multiples of no tile width (32 to 40
+# columns) or height (8 to 256 rows), H != W, odd widths, and the shapes of
+# the model (9, 17, 129, 257).
 BLUR_SIZES = ((1, 1), (9, 9), (17, 17), (129, 129), (257, 257), (33, 2), (130, 67), (5, 130))
 
 
 def _blur_edge_kernels(k):
-    """A rank-1 k x k kernel with exact float32 entries (the separable
-    path), a rank-2 k x k kernel (k > 1) and a k x (9 - k) kernel (the 2-D
-    path); tests/torch_port_utils.py ``blur_edge_kernels``."""
+    """A rank-1 k x k kernel with exact float32 entries (the model's kind),
+    a rank-2 k x k kernel (k > 1) and a k x (9 - k) kernel (the non-square
+    loop); tests/torch_port_utils.py ``blur_edge_kernels``."""
     rng = np.random.RandomState(k)
     kernels = [np.outer(rng.randint(1, 5, k), rng.randint(1, 5, k)).astype(np.float32) / 64]
     if k > 1:
@@ -160,13 +159,11 @@ def _pads(kern):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("k", range(1, 9))
 def test_blur_kernel_edge_grid_matches_plain(cuda_device, dtype, k):
-    """K3's separable path (rank-1 square taps) and 2-D path (rank-2 and
-    non-square taps) at every pad pair on the edge grid, from aligned and
-    misaligned inputs, one launch per call; and the first- and second-order
-    gradients through the blur and its adjoint (fp32)."""
+    """K3 with rank-1, rank-2 and non-square taps at every pad pair on the
+    edge grid, from aligned and misaligned inputs, one launch per call; and
+    the first- and second-order gradients through the blur and its adjoint
+    (fp32)."""
     kernels = _blur_edge_kernels(k)
-    assert _build.host_taps(kernels[0]).factors is not None
-    assert all(_build.host_taps(kern).factors is None for kern in kernels[1:-1])
     g = torch.Generator(device=cuda_device).manual_seed(k)
     ops.reset_launches()
     n = 0
@@ -203,13 +200,40 @@ def test_blur_kernel_edge_grid_matches_plain(cuda_device, dtype, k):
 @pytest.mark.gpu
 def test_blur_kernel_loops_over_more_plane_groups_than_the_grid_holds(cuda_device):
     """More groups of planes than gridDim.z's 65535, one plane per block
-    (33 x 33) and eight (3 x 40), both paths."""
+    (33 x 33) and eight (3 x 40), rank-1 and rank-2 taps."""
     for shape in ((2, 40000, 33, 33), (2, 300000, 3, 40)):
         x = torch.randn(*shape, device=cuda_device)
         for kern in _blur_edge_kernels(4)[:2]:
             _check(ops.blur(x, kern, (1, 2)), ops.blur_plain(x, kern, (1, 2)), x.dtype)
         del x
         torch.cuda.empty_cache()
+
+
+# Tall, narrow blurs (h, w, kh, kw, pads), each to a one-column output: rows
+# up to 1999, and 8 x 7 / 7 x 8 taps on planes of a few rows;
+# tests/torch_port_utils.py ``BLUR_TALL``.
+BLUR_TALL = ((2000, 4, 4, 4, (0, 0)), (2000, 2, 8, 8, (3, 3)), (1000, 1, 5, 3, (1, 1)),
+             (8, 2, 8, 7, (3, 2)), (6, 1, 7, 8, (4, 3)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_blur_kernel_tall_narrow_planes_match_plain(cuda_device, dtype):
+    """One-column tiles whose rows the threads alone would stack past 48 KB
+    of shared memory, and 8 x 7 / 7 x 8 taps in small blocks, from aligned
+    and misaligned inputs, one launch per call."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    ops.reset_launches()
+    n = 0
+    for h, w, kh, kw, pad in BLUR_TALL:
+        kern = np.random.RandomState(8 * kh + kw).uniform(-1, 2, (kh, kw)).astype(np.float32)
+        x = torch.randn(2, 3, h, w, device=cuda_device, generator=g).to(dtype)
+        for xs in (x, _at_odd_offset(x)):
+            got = ops.blur(xs, kern, pad)
+            assert got.shape == (2, 3, h + sum(pad) - kh + 1, 1)
+            _check(got, ops.blur_plain(xs.float(), kern, pad), dtype)
+            n += 1
+    assert ops.launch_counts()["blur"] == n
 
 
 @pytest.mark.gpu

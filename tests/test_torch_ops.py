@@ -24,10 +24,12 @@ from fm3dgan.ops.pallas.upfirdn2d_kernel import (
 from fm3dgan_torch import ops
 from fm3dgan_torch.ops import _build
 from torch_port_utils import (
+    BLUR_TALL,
     EDGE_K,
     EDGE_SIZES,
     assert_close,
     blur_edge_kernels,
+    blur_tall_kernel,
     down2_edge_pads,
     edge_taps,
     nchw,
@@ -104,41 +106,17 @@ def test_blur_edge_grid_matches_xla_and_pallas(k):
                      **TOL)
 
 
-def test_blur_taps_factor_when_rank_1():
-    """The blur's separable path: StyleGAN2's kernels factor exactly; a
-    rank-1 kernel within 1e-7 * max|k| (products of the float32 factors
-    taken exactly); a rank-2 kernel, a rank-1 kernel whose total is 0 and 1-D
-    taps do not."""
-    k = ops.make_kernel([1, 3, 3, 1])
-    for scale in (1.0, 4.0):
-        kcol, krow = _build.rank1_factors(k * scale)
-        np.testing.assert_array_equal(kcol, np.float32([1, 3, 3, 1]) / 8 * scale)
-        np.testing.assert_array_equal(krow, np.float32([1, 3, 3, 1]) / 8)
-        np.testing.assert_array_equal(np.outer(kcol, krow), k * scale)
-    for n in range(1, 9):
-        rank1 = blur_edge_kernels(n)[0]
-        kcol, krow = _build.rank1_factors(rank1)
-        assert kcol.dtype == krow.dtype == np.float32
-        err = np.abs(np.outer(kcol.astype(np.float64), krow) - rank1).max()
-        assert err <= 1e-7 * np.abs(rank1).max(), (n, err)
-    for n in range(2, 9):
-        assert _build.rank1_factors(blur_edge_kernels(n)[1]) is None
-    assert _build.rank1_factors(np.outer([1.0, -1.0], [1.0, 2.0]).astype(np.float32)) is None
-    assert _build.rank1_factors(np.float32([0.25, 0.75, 0.75, 0.25])) is None
-
-
-def test_blur_factors_cached_and_reversed_for_the_adjoint():
-    """``HostTaps.factors`` is one cached object; the flipped taps' factors
-    (the blur adjoint's) are the reversed factors, bit for bit."""
-    for kern in (ops.make_kernel([1, 3, 3, 1]) * 4, blur_edge_kernels(5)[0],
-                 np.outer([1.0, 2.0, 4.0, 0.5], [0.25, 1.0, 3.0]).astype(np.float32)):
-        taps = _build.host_taps(kern)
-        kh = kern.shape[0]
-        f, ff = taps.factors, taps.flipped.factors
-        assert taps.factors is f and f.array.size == sum(kern.shape)
-        np.testing.assert_array_equal(ff.array[:kh], f.array[:kh][::-1])
-        np.testing.assert_array_equal(ff.array[kh:], f.array[kh:][::-1])
-    assert _build.host_taps(blur_edge_kernels(4)[1]).factors is None
+@pytest.mark.parametrize("h,w,kh,kw,pad", BLUR_TALL)
+def test_blur_tall_narrow_planes_match_xla(h, w, kh, kw, pad):
+    """The blur wrapper on a CPU tensor at the card's tall, narrow edge
+    cases (one-column outputs up to 1999 rows; 8 x 7 and 7 x 8 taps),
+    against the XLA upfirdn2d."""
+    x = _x((1, h, w, 2), h + kh)
+    kern = blur_tall_kernel(kh, kw)
+    want = jax_upfirdn.upfirdn2d(jnp.asarray(x), jnp.asarray(kern), pad=pad)
+    got = _port(ops.blur, x, kern, pad)
+    assert got.shape == (1, h + sum(pad) - kh + 1, 1, 2)
+    assert_close(got, want, what=f"blur {kern.shape} {(h, w)} pad={pad}", **TOL)
 
 
 @pytest.mark.parametrize(

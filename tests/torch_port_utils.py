@@ -85,15 +85,24 @@ def down2_edge_pads(k):
 
 def blur_edge_kernels(k):
     """The blur edge grid's kernels of size k: a rank-1 k x k kernel with
-    exact float32 entries, which its float32 factors reproduce within one
-    rounding (the card's separable path); a rank-2 k x k kernel (k > 1) and
-    a k x (9 - k) kernel (its 2-D path)."""
+    exact float32 entries (the model's kind), a rank-2 k x k kernel (k > 1)
+    and a k x (9 - k) kernel (the card kernel's non-square loop)."""
     rng = np.random.RandomState(k)
     kernels = [np.outer(rng.randint(1, 5, k), rng.randint(1, 5, k)).astype(np.float32) / 64]
     if k > 1:
         kernels.append(rng.uniform(-1, 2, (k, k)).astype(np.float32))
     kernels.append(rng.uniform(-1, 2, (k, 9 - k)).astype(np.float32))
     return kernels
+
+
+# Tall, narrow blurs (h, w, kh, kw, pads), each to a one-column output: rows
+# up to 1999, and 8 x 7 / 7 x 8 taps on planes of a few rows.
+BLUR_TALL = ((2000, 4, 4, 4, (0, 0)), (2000, 2, 8, 8, (3, 3)), (1000, 1, 5, 3, (1, 1)),
+             (8, 2, 8, 7, (3, 2)), (6, 1, 7, 8, (4, 3)))
+
+
+def blur_tall_kernel(kh, kw):
+    return np.random.RandomState(8 * kh + kw).uniform(-1, 2, (kh, kw)).astype(np.float32)
 
 
 def pallas_takes_down2(h, w, k, p0, p1):
