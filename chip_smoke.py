@@ -18,10 +18,11 @@ Builds the hand-written CUDA kernels of ``fm3dgan_torch`` from
    through the kernels and through the plain versions, checks the output
    and the launch counts, repeats in bfloat16, checks a small configuration
    on the card against the CPU, and times batch 32;
-3. gradient phase: on a full-width 256 px ``Trainer`` state, the gradients
-   of one G step (GAN + L1 + face-regional, fixed noise) and of one R1 step
-   at batch 16, through the kernels, under ``plain_versions()`` (which
-   must launch nothing and reproduce itself to the bit) and, as the exact
+3. gradient phase: on a full-width 256 px ``Trainer(TrainConfig())`` state
+   (with its frozen LPIPS and ArcFace), the gradients of one G step (GAN +
+   LPIPS + L1 + face-ID + face-regional, fixed noise) and of one R1 step at
+   batch 16, through the kernels, under ``plain_versions()`` (which must
+   launch nothing and reproduce itself to the bit) and, as the exact
    reference, under ``plain_versions()`` in float64; each parameter tensor
    held to :func:`hold_gradient` (the 1e-4 bar, widened only where the
    float64 run shows the plain float32 path itself further off);
@@ -31,7 +32,13 @@ Builds the hand-written CUDA kernels of ``fm3dgan_torch`` from
    checks that the losses are finite, every partition, g_ema and the
    BatchNorm statistics moved, the PPL mean is positive, all five kernels
    ran and each iteration without regulariser launched them as often as
-   the kernel phase's per-shape weights say; then 2 iterations in bfloat16.
+   the kernel phase's per-shape weights say; times the loss networks'
+   forward and input gradient at the G step's shapes; then 2 iterations in
+   bfloat16 and 2 with ``share_dg_noise`` (one G forward fewer each);
+5. CLI phase: ``python -m fm3dgan_torch.tools.train_3_encoder`` (its
+   ``main``) on fake data, 6 iterations at 256 px with a checkpoint after
+   iteration 3, then resumed from it: iteration 4's D and G losses must
+   agree with the uninterrupted run's.
 
 Prints one JSON line per measurement, the card's name and power limit, a
 ``{"kernels": [...]}`` summary, and last ``{"ok": true, "device": ...}``.
@@ -46,6 +53,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -61,6 +69,8 @@ TRAIN_BATCH = 16
 GRAD_BATCH = 16
 TRAIN_ITERS = 6
 BF16_ITERS = 2
+SHARED_ITERS = (1, 2)  # DS and reconstruction, no regulariser
+CLI_ITERS, CLI_SAVE, CLI_CHECK = 6, 3, 4  # run, checkpoint after, iteration compared on resume
 
 # (C, R): blur input [N, C, 2R+1, 2R+1] after each upsampling transposed conv.
 BLUR_SHAPES = [(512, 4), (512, 8), (512, 16), (512, 32), (256, 64), (128, 128)]
@@ -485,18 +495,21 @@ def hold_gradient(k, p, e, part_max):
 
 
 def gradient_phase(ops, train, trainer):
-    """One G step (GAN + L1 + face-regional, DS branch with D_edit) and one R1
-    step on the same state with fixed noise and cuDNN's deterministic
-    algorithms, through the kernels and through the plain versions, forward
-    and backward; the plain runs must launch no kernel.  The plain run is
-    made twice (the repeat must give the same gradients to the bit) and once
-    more in float64 (``Trainer.float64_state``), the exact reference, whose
-    losses must agree with the float32 ones within 1e-4.  Every parameter
-    tensor must pass :func:`hold_gradient`."""
+    """One G step (GAN + LPIPS + L1 + face-ID + face-regional, DS branch with
+    D_edit) and one R1 step on the same state with fixed noise and cuDNN's
+    deterministic algorithms, through the kernels and through the plain
+    versions, forward and backward; the plain runs must launch no kernel.
+    The plain run is made twice (the repeat must give the same gradients to
+    the bit) and once more in float64 (``Trainer.float64_state``), the exact
+    reference, whose losses must agree with the float32 ones within 1e-4.
+    Every parameter tensor must pass :func:`hold_gradient`.  With LPIPS and
+    ArcFace in the loss, G's noise-weight gradients are sums whose terms
+    are up to 264 times larger than they are (PERF.md): float32
+    rounding anywhere upstream moves them by up to 8.4e-3, so there only
+    kernels that round as their plain versions do pass the bar."""
     steps, st, cfg = train.steps, trainer.state, trainer.config
     photo, render, ref = (steps.prepare_batch(a, "cuda")
                           for a in _train_inputs(GRAD_BATCH, 11, ds_flag=True))
-    torch.backends.cudnn.deterministic = True
 
     def run(state, photo, render, ref):
         g, g_losses = steps.g_step_grads(state, cfg, photo, render, ref, use_edit=True,
@@ -505,6 +518,7 @@ def gradient_phase(ops, train, trainer):
         losses = {k: float(v) for k, v in {**g_losses, **r1_losses}.items()}
         return {"g_step": g, "r1": r1}, losses
 
+    torch.backends.cudnn.deterministic = True
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
@@ -522,6 +536,8 @@ def gradient_phase(ops, train, trainer):
     del state64
     torch.backends.cudnn.deterministic = False
     require(not any(plain_counts.values()), f"gradient phase plain runs launched {plain_counts}")
+    require(got_losses["lpips"] > 0 and got_losses["face_id"] > 0,
+            f"the G step ran without its loss networks: {got_losses}")
     # The float64 run computes the same function: its losses agree with the
     # float32 ones to float32 rounding.
     loss_rel = {k: abs(got_losses[k] - v) / max(abs(v), 1e-30) for k, v in exact_losses.items()
@@ -575,16 +591,27 @@ def _snapshot(st):
     return snap
 
 
-def training_phase(ops, train, trainer, iters, dtype_name, per_iteration):
-    """``Trainer.train_iteration`` on iterations 0..iters-1; returns the
-    launches of the whole run.  Each iteration without regulariser must
-    launch each kernel as often as ``per_iteration`` says."""
+def _branch(trainer, i) -> str:
+    cfg = trainer.config
+    name = ("extreme_ds" if cfg.is_extreme_ds_iter(i) else "ds") if cfg.is_ds_iter(i) else "reconstruction"
+    regs = [r for r, due in (("r1", i % cfg.d_reg_every == 0), ("ppl", i % cfg.g_reg_every == 0)) if due]
+    return "+".join([name, *regs])
+
+
+def training_phase(ops, train, trainer, iterations, dtype_name, per_iteration,
+                   check_state=False):
+    """``Trainer.train_iteration`` on ``iterations``; returns the launches of
+    the whole run and the ms of each iteration.  Each iteration without
+    regulariser must launch each kernel as often as ``per_iteration`` says;
+    with ``check_state`` every partition, g_ema and the BatchNorm statistics
+    must have moved, the PPL mean be positive and every kernel have run."""
     st = trainer.state
-    before = _snapshot(st) if dtype_name == "float32" else None
+    before = _snapshot(st) if check_state else None
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    for i in range(iters):
+    ms_by_iteration = {}
+    for i in iterations:
         photo, render, ref = _train_inputs(TRAIN_BATCH, 100 + i, trainer.config.is_ds_iter(i))
         before_i = ops.launch_counts()
         t0 = time.perf_counter()
@@ -593,7 +620,9 @@ def training_phase(ops, train, trainer, iters, dtype_name, per_iteration):
         ms = (time.perf_counter() - t0) * 1e3
         counts = {k: v - before_i[k] for k, v in ops.launch_counts().items()}
         losses = {k: float(v) for k, v in m.items() if torch.is_tensor(v)}
+        ms_by_iteration[i] = ms
         rec = dict(phase="train", dtype=dtype_name, iteration=i, batch=TRAIN_BATCH,
+                   share_dg_noise=trainer.config.share_dg_noise, branch=_branch(trainer, i),
                    ds_flag=m["ds_flag"], extreme_ds_flag=m["extreme_ds_flag"],
                    use_edit=bool(m["ds_flag"] and trainer.config.use_separate_d),
                    r1_step=i % trainer.config.d_reg_every == 0,
@@ -614,10 +643,108 @@ def training_phase(ops, train, trainer, iters, dtype_name, per_iteration):
             require(moved, f"training did not change {part}")
         require(float(st.mean_path_length) > 0, f"mean_path_length {float(st.mean_path_length)}")
         require(all(v > 0 for v in launches.values()), f"training launches {launches}")
-    emit(dict(phase="train_summary", dtype=dtype_name, iterations=iters, batch=TRAIN_BATCH,
-              launches=launches, max_memory_allocated_bytes=peak,
-              mean_path_length=float(st.mean_path_length)))
-    return launches
+    emit(dict(phase="train_summary", dtype=dtype_name, share_dg_noise=trainer.config.share_dg_noise,
+              iterations=list(iterations), batch=TRAIN_BATCH, launches=launches,
+              ms_by_branch={_branch(trainer, i): ms for i, ms in ms_by_iteration.items()},
+              max_memory_allocated_bytes=peak, mean_path_length=float(st.mean_path_length)))
+    return launches, ms_by_iteration
+
+
+def loss_net_phase(trainer, iteration_ms):
+    """Device ms of the frozen loss networks in one G step at its shapes
+    (batch 16, 256 px, float32): the LPIPS distance of the generated batch
+    to the reference and the face-ID loss against it, each forward alone
+    (no graph) and forward plus the input gradient the G step takes; CUDA
+    events around 5 calls after 2 warm-up calls.  ``iteration_ms``: the ms
+    of the reconstruction and DS iterations without regulariser, for their
+    share."""
+    from fm3dgan_torch.losses import face_identity_loss
+
+    st, cfg = trainer.state, trainer.config
+    g = torch.Generator(device="cuda").manual_seed(21)
+    fake = (torch.rand(TRAIN_BATCH, 3, 256, 256, device="cuda", generator=g) * 2 - 1).requires_grad_(True)
+    ref = torch.rand(TRAIN_BATCH, 3, 256, 256, device="cuda", generator=g) * 2 - 1
+    fns = {
+        "lpips": lambda: st.lpips(fake, ref).mean(),
+        "arcface": lambda: face_identity_loss(fake, ref, st.arcface, cfg.face_id_loss_type),
+    }
+    rec = dict(phase="loss_nets", batch=TRAIN_BATCH, dtype=cfg.compute_dtype)
+    for name, fn in fns.items():
+        with torch.no_grad():
+            rec[f"{name}_forward_ms"] = cuda_ms(fn, iters=5, warmup=2)[0]
+        rec[f"{name}_forward_and_input_grad_ms"] = cuda_ms(
+            lambda: torch.autograd.grad(fn(), fake), iters=5, warmup=2)[0]
+    total = rec["lpips_forward_and_input_grad_ms"] + rec["arcface_forward_and_input_grad_ms"]
+    mean_ms = sum(iteration_ms) / len(iteration_ms)
+    rec.update(per_g_step_ms=total, iteration_ms_mean=mean_ms, share_of_iteration=total / mean_ms)
+    emit(rec)
+    require(all(math.isfinite(v) and v > 0 for v in rec.values() if isinstance(v, float)),
+            f"loss network timing {rec}")
+    return rec
+
+
+def cli_phase(ops):
+    """The training CLI as a user starts it (its ``main``): fake data, full
+    width, 256 px, a checkpoint after iteration ``CLI_SAVE``; then a second
+    run resumed from that checkpoint, whose iteration ``CLI_CHECK`` must give
+    the D and G losses of the uninterrupted run within 1e-5 relative (only
+    the PPL subset's host RNG is not checkpointed, as in the JAX CLI).
+    Both runs take cuDNN's deterministic algorithms.  With the default ones
+    the convolutions may add in another order from one run to the next:
+    iteration ``CLI_CHECK``'s D loss moved by up to 5.5e-7 relative, and
+    Adam, which divides each gradient by its root mean square, carried the
+    rounding of that iteration's D update into its G loss by 1.25e-5.  That
+    would hide what the comparison is for: whether the checkpoint holds the
+    whole training state."""
+    from fm3dgan_torch.tools import train_3_encoder as cli
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    first, resumed = os.path.join(root, "run"), os.path.join(root, "resumed")
+    args = ["--fake_data", "--training_iters", str(CLI_ITERS), "--model_save_freq", str(CLI_SAVE),
+            "--log_every", "1"]
+    rec = dict(phase="cli", cudnn_deterministic=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        rc = cli.main(args + ["--exp_dir", first])
+        torch.cuda.synchronize()
+        rec["run_s"] = time.perf_counter() - t0
+        rec["launches"] = ops.launch_counts()
+        require(rc == 0, f"the CLI exited {rc}")
+        ckpt = os.path.join(first, "ckpt")
+        require(sorted(os.listdir(ckpt)) == [f"{CLI_SAVE:06d}.json", f"{CLI_SAVE:06d}.pt"],
+                f"checkpoints {os.listdir(ckpt)}")
+        rec["checkpoint_bytes"] = os.path.getsize(os.path.join(ckpt, f"{CLI_SAVE:06d}.pt"))
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rc = cli.main(args + ["--exp_dir", resumed, "--resume_dir", ckpt,
+                              "--resume_step", str(CLI_SAVE)])
+        torch.cuda.synchronize()
+        rec["resumed_run_s"] = time.perf_counter() - t0
+        require(rc == 0, f"the resumed CLI exited {rc}")
+        logs = {}
+        for name, exp in (("run", first), ("resumed", resumed)):
+            with open(os.path.join(exp, "training_log.jsonl")) as f:
+                logs[name] = {line["iter"]: line for line in map(json.loads, f)}
+        require(sorted(logs["run"]) == list(range(CLI_ITERS)), f"iterations {sorted(logs['run'])}")
+        require(sorted(logs["resumed"]) == list(range(CLI_SAVE + 1, CLI_ITERS)),
+                f"resumed iterations {sorted(logs['resumed'])}")
+        for line in logs["run"].values():
+            require(all(math.isfinite(v) for v in line.values() if isinstance(v, float)),
+                    f"CLI iteration {line}")
+        a, b = logs["run"][CLI_CHECK], logs["resumed"][CLI_CHECK]
+        rec["resume_rel_diff"] = {k: abs(a[k] - b[k]) / max(abs(a[k]), 1e-30) for k in ("d", "g")}
+        rec["time_s"] = {i: line["time_s"] for i, line in logs["run"].items()}
+        emit(rec)
+        require(all(v > 0 for v in rec["launches"].values()), f"CLI launches {rec['launches']}")
+        require(all(v <= 1e-5 for v in rec["resume_rel_diff"].values()),
+                f"resumed iteration {CLI_CHECK} differs: {rec['resume_rel_diff']}")
+    finally:
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(root, ignore_errors=True)
+    return rec
 
 
 # Summary key -> record key, summed per iteration or per forward.
@@ -695,18 +822,32 @@ def main() -> int:
     records = kernel_phase(ops) + training_kernel_phase(ops)
     path = path_phase(ops, pipeline)
 
-    config = train.TrainConfig()  # the shipped 3-encoder configuration, 256 px, full width
+    # The shipped 3-encoder configuration, 256 px, full width, LPIPS and ArcFace.
+    config = train.TrainConfig()
     trainer = train.Trainer(config, seed=0, device="cuda")
     grads = gradient_phase(ops, train, trainer)
     per_iteration = launches_per_iteration(records)
-    launches = training_phase(ops, train, trainer, TRAIN_ITERS, "float32", per_iteration)
+    launches, ms = training_phase(ops, train, trainer, range(TRAIN_ITERS), "float32", per_iteration,
+                                  check_state=True)
+    loss_net_phase(trainer, [ms[i] for i in SHARED_ITERS])
     del trainer
     torch.cuda.empty_cache()
     trainer = train.Trainer(dataclasses.replace(config, compute_dtype="bfloat16"), seed=0,
                             device="cuda")
-    training_phase(ops, train, trainer, BF16_ITERS, "bfloat16", per_iteration)
+    training_phase(ops, train, trainer, range(BF16_ITERS), "bfloat16", per_iteration)
     del trainer
     torch.cuda.empty_cache()
+    # The shared iteration runs G forward once: one inference forward's
+    # launches fewer than the unshared iteration.
+    trainer = train.Trainer(dataclasses.replace(config, share_dg_noise=True), seed=0, device="cuda")
+    per_shared = {k: v - EXPECTED_LAUNCHES[k] for k, v in per_iteration.items()}
+    _, shared_ms = training_phase(ops, train, trainer, SHARED_ITERS, "float32", per_shared)
+    emit(dict(phase="shared_vs_unshared", iterations=list(SHARED_ITERS),
+              shared_ms=[shared_ms[i] for i in SHARED_ITERS], unshared_ms=[ms[i] for i in SHARED_ITERS],
+              launches_per_iteration=per_shared))
+    del trainer
+    torch.cuda.empty_cache()
+    cli_phase(ops)
 
     result = summary(records, launches, path["launches"])
     if args.out:

@@ -1,10 +1,10 @@
 """JAX (flax) variables -> the port's state dicts.
 
 The inverse of ``fm3dgan/compat/torch_port.py``'s ``convert_generator``,
-``convert_discriminator``, ``convert_resnet18_encoder`` and
-``convert_psp_encoder``: the output uses the
-reference torch key names and layouts, so a reference torch checkpoint and a
-converted JAX tree load into the port alike.
+``convert_discriminator``, ``convert_resnet18_encoder``,
+``convert_psp_encoder``, ``convert_arcface`` and ``convert_lpips``: the
+output uses the reference torch key names and layouts, so a reference torch
+checkpoint and a converted JAX tree load into the port alike.
 
   * conv kernels HWIO -> OIHW
   * Dense / EqualLinear [in, out] -> [out, in]
@@ -177,6 +177,52 @@ def psp_from_jax(v: Mapping[str, Any]) -> SD:
     return sd
 
 
+def arcface_from_jax(v: Mapping[str, Any]) -> SD:
+    """Inverse of ``convert_arcface``: ResNetFace-18 in the reference layout."""
+    params, stats = v["params"], v["batch_stats"]
+    sd: SD = {"conv1.weight": _conv(params["conv1"]["kernel"])}
+    _bn(sd, "bn1", params["bn1"], stats["bn1"])
+    sd["prelu.weight"] = _t(params["prelu"]["alpha"])
+    for li in range(1, 5):
+        for bi in range(2):
+            p, s = params[f"layer{li}_{bi}"], stats[f"layer{li}_{bi}"]
+            dst = f"layer{li}.{bi}"
+            _bn(sd, f"{dst}.bn0", p["bn0"], s["bn0"])
+            sd[f"{dst}.conv1.weight"] = _conv(p["conv1"]["kernel"])
+            _bn(sd, f"{dst}.bn1", p["bn1"], s["bn1"])
+            sd[f"{dst}.prelu.weight"] = _t(p["prelu"]["alpha"])
+            sd[f"{dst}.conv2.weight"] = _conv(p["conv2"]["kernel"])
+            _bn(sd, f"{dst}.bn2", p["bn2"], s["bn2"])
+            if "downsample_conv" in p:
+                sd[f"{dst}.downsample.0.weight"] = _conv(p["downsample_conv"]["kernel"])
+                _bn(sd, f"{dst}.downsample.1", p["downsample_bn"], s["downsample_bn"])
+    _bn(sd, "bn4", params["bn4"], stats["bn4"])
+    sd["fc5.weight"] = _linear(params["fc5"]["kernel"])
+    sd["fc5.bias"] = _t(params["fc5"]["bias"])
+    _bn(sd, "bn5", params["bn5"], stats["bn5"])
+    return sd
+
+
+# torchvision VGG16 ``features`` index of each of the 13 convolutions.
+VGG_CONV_INDEX = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+
+
+def lpips_from_jax(v: Mapping[str, Any]) -> SD:
+    """Inverse of ``convert_lpips``: VGG16 ``features.*`` and the heads
+    ``lin{k}.model.1.weight``."""
+    params = v["params"]
+    sd: SD = {}
+    for ci, idx in enumerate(VGG_CONV_INDEX):
+        p = params["net"][f"conv{ci}"]
+        sd[f"features.{idx}.weight"] = _conv(p["kernel"])
+        sd[f"features.{idx}.bias"] = _t(p["bias"])
+    k = 0
+    while f"lin{k}" in params:
+        sd[f"lin{k}.model.1.weight"] = _t(np.reshape(params[f"lin{k}"], (1, -1, 1, 1)))
+        k += 1
+    return sd
+
+
 _CONVERTERS = {
     "g": generator_from_jax,
     "d": discriminator_from_jax,
@@ -184,11 +230,14 @@ _CONVERTERS = {
     "e_tsr": resnet18_from_jax,
     "e_w": resnet18_from_jax,
     "e_w_plus": psp_from_jax,
+    "lpips": lpips_from_jax,
+    "arcface": arcface_from_jax,
 }
 
 
 def from_jax(variables_np: Mapping[str, Any]) -> Dict[str, SD]:
-    """{'g', 'e_tsr', 'e_w', 'e_w_plus', 'd', 'd_edit'} flax variables (numpy
-    leaves) -> state dicts of the same keys, for
-    ``FaceManipulator.load_variables`` and ``Discriminator.load_state_dict``."""
+    """{'g', 'e_tsr', 'e_w', 'e_w_plus', 'd', 'd_edit', 'lpips', 'arcface'}
+    flax variables (numpy leaves) -> state dicts of the same keys, for
+    ``FaceManipulator.load_variables``, ``Discriminator.load_state_dict`` and
+    the ``Trainer``'s ``frozen_state_dicts``."""
     return {k: _CONVERTERS[k](v) for k, v in variables_np.items() if k in _CONVERTERS}

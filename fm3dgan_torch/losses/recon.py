@@ -1,8 +1,8 @@
 """Reconstruction losses: L1 and the ArcFace identity loss, NCHW.
 
 Counterpart of ``fm3dgan/losses/recon.py``.  ``face_identity_loss`` takes the
-face-recognition network as a function; the ArcFace model itself is not
-ported yet, so the trainer runs with ``use_arcface=False``.
+face-recognition network as a function (the G step passes
+``models.arcface.ResNetFace18``); the LPIPS distance is ``models.lpips``.
 """
 
 from __future__ import annotations

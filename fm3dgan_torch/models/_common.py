@@ -48,3 +48,16 @@ def bn(m: nn.BatchNorm2d, x: torch.Tensor, train: bool = False) -> torch.Tensor:
 
 def prelu(m: nn.PReLU, x: torch.Tensor) -> torch.Tensor:
     return F.prelu(x, m.weight.to(x.dtype))
+
+
+def lecun_normal_(module: nn.Module) -> None:
+    """flax's default initialisation of every Conv2d and Linear in
+    ``module``: weights from a normal truncated at two standard deviations
+    with variance 1/fan_in (flax's ``lecun_normal``), biases zero."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            fan_in = m.weight[0].numel()
+            std = fan_in ** -0.5 / 0.87962566103423978  # the truncated normal's std, corrected
+            nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)

@@ -1,13 +1,13 @@
 """Training configuration of the 3-encoder model.
 
-Counterpart of ``fm3dgan/train/config.py``: the model, encoder, schedule,
-regulariser, loss, EMA and compute-dtype fields with the shipped 3-encoder
-values.  The JAX package's TPU dispatch and memory knobs (``fuse_*``,
-``remat_*``, ``data_axis``) have no counterpart here.  Fields that no ported
-code would read wait for the slice that reads them (``ROADMAP.md``): the
-LPIPS and face-ID weights and type, the heatmap iteration threshold, the
-batch sizes of the data loader (the trainer takes its batch from its
-inputs), ``share_dg_noise`` and the eval/checkpoint cadences.
+Counterpart of ``fm3dgan/train/config.py``: every field of the JAX
+configuration with its shipped 3-encoder value and type, but the JAX
+package's TPU dispatch and memory knobs (``fuse_*``, ``remat_*``,
+``data_axis``), which have no counterpart in eager PyTorch on one card.
+``w_encode``, ``w_plus_encode``, ``hmap_iter_thres`` and
+``quant_eval_batch_size`` are parsed and stored, as the JAX CLI does, and
+read by no ported code yet (the FAN heatmap loss and the evaluation hook
+are later slices).
 """
 
 from __future__ import annotations
@@ -34,15 +34,21 @@ class TrainConfig:
     # Encoders
     tsr_encode: str = "Render Image"
     tsr_train: bool = True
+    w_encode: str = "Render Image"
     w_train: bool = True
+    w_plus_encode: str = "Photo Image"
     w_plus_encoder_layer_num: int = 18
     w_plus_sliced_layer: Optional[Tuple[int, ...]] = None
     w_plus_train: bool = True
     use_tanh: bool = False
 
-    # Schedule
+    # Schedule; the batch sizes are the data loaders' (the trainer takes its
+    # batch from its inputs).
+    training_iters: int = 420_001
     ds_freq: int = 2  # 1 dual-supervision iteration every ds_freq
     ex_ds_freq: int = 3  # 1 extreme-DS iteration every ex_ds_freq DS ones
+    rec_batch: int = 16
+    ds_batch: int = 16
     lr: float = 1e-3
 
     # Regularisers
@@ -53,11 +59,14 @@ class TrainConfig:
     r1: float = 10.0
     d_reg_every: int = 16
 
-    # Loss weights.  Only the terms the port computes; the FAN heatmap term
-    # is refused above 0 by the Trainer.
+    # Loss weights; the FAN heatmap term is refused above 0 by the Trainer.
+    lpips_loss_lambda: float = 3.0
     l1_loss_lambda: float = 3.0
     ep_lpips_l1_weight_shrink: float = 10.0
+    face_id_loss_lambda: float = 30.0
+    face_id_loss_type: str = "MSE"
     hmap_loss_lambda: float = 0.0
+    hmap_iter_thres: float = math.inf
     rec_face_reg_loss_lambda: float = 0.0
     ds_face_reg_loss_lambda: float = 20.0
     ep_face_reg_loss_lambda: float = 100.0
@@ -65,8 +74,18 @@ class TrainConfig:
     # EMA
     ema_decay: float = 0.5 ** (32 / 10_000)
 
+    # Checkpoint and log cadence of the CLI
+    model_save_freq: int = 10_000
+    val_sample_freq: int = 1_000
+    quant_eval_batch_size: int = 64
+
     # Precision: "float32" or "bfloat16"
     compute_dtype: str = "float32"
+
+    # One encode + generate per iteration serves the D and the G update (the
+    # D step's noise for both; the encoders' BatchNorm running statistics
+    # take one update instead of two).  Off: the reference cadence.
+    share_dg_noise: bool = False
 
     @property
     def g_reg_ratio(self) -> float:

@@ -1,55 +1,77 @@
 """Host-side training loop of the 3-encoder model.
 
-Counterpart of ``fm3dgan/train/loop.py``'s ``Trainer`` with its unfused
-iteration: D step, lazy R1, G step, lazy PPL, then EMA after the last G
-update, in that order.  The reconstruction / dual-supervision /
-extreme-pose schedule and the PPL subset (``np.random.RandomState(seed)``)
+Counterpart of ``fm3dgan/train/loop.py``'s ``Trainer``.  An iteration is the
+D step, lazy R1, the G step (GAN, LPIPS, L1, face-ID, face-regional), lazy
+PPL, then EMA after the last G update; with ``share_dg_noise`` it is the
+shared iteration (one encode + generate for the D and the G update) and
+then PPL.  The schedule and the PPL subset (``np.random.RandomState(seed)``)
 repeat the JAX trainer's; per-iteration noise comes from three
 ``torch.Generator``s seeded from (seed, iteration) through numpy's Philox,
-the counterpart of ``_iter_keys``, so a resumed run would draw the same
-noise.  Checkpoints and the CLI wait for a later slice.
+the counterpart of ``_iter_keys``, so a resumed run draws the same noise.
+
+Random initial weights come from seeds derived from ``seed`` in the JAX
+split order: the models ``seed``, D ``seed + 1``, D_edit ``seed + 2``,
+LPIPS ``seed + 3``, ArcFace ``seed + 4``.  The frozen loss networks run in
+the training compute dtype, as in the JAX trainer.
+
+A checkpoint is ``{step:06d}.pt`` (the reference-layout state dicts of G,
+the encoders, both discriminators and g_ema with their BatchNorm buffers,
+the Adam states, the G-step count and the PPL mean) beside the JAX package's
+``{step:06d}.json``.  The frozen networks are rebuilt, not saved, and the
+PPL subset's host RNG is not saved, as in JAX.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+import json
+import os
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from fm3dgan_torch.models.arcface import ResNetFace18
 from fm3dgan_torch.models.discriminator import Discriminator
+from fm3dgan_torch.models.lpips import LPIPS
 from fm3dgan_torch.pipeline.forward import FaceManipulator, resolve_device
 from fm3dgan_torch.train import steps
 from fm3dgan_torch.train.config import TrainConfig
 from fm3dgan_torch.train.state import TrainState
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+OPTIMIZERS = ("g_enc_opt", "d_opt", "d_edit_opt")
 
 
 class Trainer:
-    """Builds the models, the train state and runs iterations on ``device``
-    (``cuda`` unless the caller passes another)."""
+    """Builds the models, the frozen loss networks and the train state, and
+    runs iterations on ``device`` (``cuda`` unless the caller passes
+    another).  ``frozen_state_dicts`` may hold reference-layout state dicts
+    for ``lpips`` and ``arcface``, which replace their random weights."""
 
     def __init__(
         self,
         config: TrainConfig,
         seed: int = 0,
-        use_lpips: bool = False,
-        use_arcface: bool = False,
+        use_lpips: bool = True,
+        use_arcface: bool = True,
         device=None,
-        input_size=None,
+        input_size: Optional[int] = None,
+        frozen_state_dicts: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
     ):
-        if use_lpips or use_arcface:
-            raise NotImplementedError("the LPIPS and ArcFace loss networks are not ported yet")
         if config.hmap_loss_lambda > 0:
-            raise NotImplementedError("the FAN heatmap loss network is not ported yet")
+            raise NotImplementedError(
+                "hmap_loss_lambda > 0 needs the FAN heatmap network, which is not ported "
+                "yet (ROADMAP.md: the evaluation slice); set it to 0")
         self.config = config
         self.device = resolve_device(device)
         self.input_size = input_size or config.size
-        self.state = self._create_state(DTYPES[config.compute_dtype], seed)
         self._seed = seed
+        self._use_lpips, self._use_arcface = use_lpips, use_arcface
+        self._frozen_state_dicts = frozen_state_dicts or {}
+        self.state = self._create_state(DTYPES[config.compute_dtype], seed)
         # Host RNG for the PPL subset choice, drawn at every PPL iteration.
         self._host_rng = np.random.RandomState(seed)
+        self._copy_stream: Optional[torch.cuda.Stream] = None
         zero = torch.zeros((), device=self.device)
         self._last_r1 = zero
         self._last_greg = {"g_reg": zero, "path_length": zero}
@@ -64,24 +86,39 @@ class Trainer:
         )
         d_kw = dict(size=config.size, channel_multiplier=config.channel_multiplier,
                     width_mult=config.width_mult, dtype=dtype)
+        frozen = {}
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed + 1)
             d = Discriminator(**d_kw)
             torch.manual_seed(seed + 2)
             d_edit = Discriminator(**d_kw)
-        return TrainState.create(config, models, d.to(self.device), d_edit.to(self.device))
+            if self._use_lpips:
+                torch.manual_seed(seed + 3)
+                frozen["lpips"] = LPIPS(dtype=dtype)
+            if self._use_arcface:
+                # ArcFace sees the generated image grayscale and 2x pooled.
+                torch.manual_seed(seed + 4)
+                frozen["arcface"] = ResNetFace18(input_size=config.size // 2, dtype=dtype)
+        for name, net in frozen.items():
+            if name in self._frozen_state_dicts:
+                net.load_state_dict(self._frozen_state_dicts[name])
+            frozen[name] = net.requires_grad_(False).eval().to(self.device)
+        return TrainState.create(config, models, d.to(self.device), d_edit.to(self.device),
+                                 **frozen)
 
     def float64_state(self) -> TrainState:
-        """A state whose models and discriminators hold this state's
-        parameters (float32, cast at use) and compute in float64.  On the CPU
-        or under ``plain_versions()`` its steps run the plain path with no
-        float32 step: the exact reference that the chip smoke test and the
-        card tests hold float32 gradients against.  Not for training: the
-        kernels take float32 and bfloat16 only."""
+        """A state whose models, discriminators and loss networks hold this
+        state's parameters (float32, cast at use) and compute in float64.
+        On the CPU or under ``plain_versions()`` its steps run the plain path
+        with no float32 step: the exact reference that the chip smoke test
+        and the card tests hold float32 gradients against.  Not for
+        training: the kernels take float32 and bfloat16 only."""
         ref = self._create_state(torch.float64, self._seed)
-        for dst, src in ((ref.models, self.state.models), (ref.d, self.state.d),
-                         (ref.d_edit, self.state.d_edit)):
-            dst.load_state_dict(src.state_dict())
+        st = self.state
+        for dst, src in ((ref.models, st.models), (ref.d, st.d), (ref.d_edit, st.d_edit),
+                         (ref.lpips, st.lpips), (ref.arcface, st.arcface)):
+            if dst is not None:
+                dst.load_state_dict(src.state_dict())
         return ref
 
     def schedule(self, iter_idx: int, batch: int) -> Dict[str, Any]:
@@ -111,20 +148,52 @@ class Trainer:
         ).integers(0, 2**63 - 1, size=3)
         return tuple(torch.Generator(device=self.device).manual_seed(int(w)) for w in words)
 
+    def stage_batch(self, *arrays) -> Tuple[torch.Tensor, ...]:
+        """Start the host-to-device copies of an upcoming iteration's batches
+        (NHWC, dtype kept) and return them on the device.
+
+        On a card each array goes through pinned memory as a non-blocking
+        copy on a side stream; the current stream waits for that stream
+        before anything enqueued after this call, and each staged tensor is
+        recorded on the current stream, so its memory is not reused before
+        the iteration that reads it has run.  Called right after an iteration
+        is enqueued, the copies overlap its compute."""
+        if self.device.type != "cuda":
+            return tuple(torch.as_tensor(a).to(self.device) for a in arrays)
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        consumer = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self._copy_stream):
+            staged = tuple(torch.as_tensor(a).pin_memory().to(self.device, non_blocking=True)
+                           for a in arrays)
+        consumer.wait_stream(self._copy_stream)
+        for t in staged:
+            t.record_stream(consumer)
+        return staged
+
     def train_iteration(self, iter_idx: int, photo, render, ref) -> Dict[str, Any]:
-        """One iteration on NHWC batches (uint8, or float in [-1, 1])."""
+        """One iteration on NHWC batches (uint8, or float in [-1, 1]; numpy,
+        or tensors from :meth:`stage_batch`)."""
         cfg, state = self.config, self.state
         photo, render, ref = (steps.prepare_batch(a, self.device) for a in (photo, render, ref))
         s = self.schedule(iter_idx, photo.shape[0])
         d_gen, g_gen, ppl_gen = self.iteration_generators(iter_idx)
         metrics: Dict[str, Any] = {}
-        metrics.update(steps.d_step(state, cfg, photo, render, ref, s["use_edit"], d_gen))
-        if s["do_r1"]:
-            self._last_r1 = steps.d_reg_step(state, cfg, ref, s["use_edit"])["r1"]
-        metrics.update(steps.g_step(
-            state, cfg, photo, render, ref, s["use_edit"], s["ds_flag"], s["extreme"], g_gen,
-            apply_ema=not s["will_g_reg"],
-        ))
+        if cfg.share_dg_noise:
+            metrics.update(steps.shared_iteration(
+                state, cfg, photo, render, ref, s["use_edit"], s["ds_flag"], s["extreme"],
+                s["do_r1"], d_gen, apply_ema=not s["will_g_reg"],
+            ))
+            if s["do_r1"]:
+                self._last_r1 = metrics["r1"]
+        else:
+            metrics.update(steps.d_step(state, cfg, photo, render, ref, s["use_edit"], d_gen))
+            if s["do_r1"]:
+                self._last_r1 = steps.d_reg_step(state, cfg, ref, s["use_edit"])["r1"]
+            metrics.update(steps.g_step(
+                state, cfg, photo, render, ref, s["use_edit"], s["ds_flag"], s["extreme"], g_gen,
+                apply_ema=not s["will_g_reg"],
+            ))
         if s["will_g_reg"]:
             idx = torch.as_tensor(s["ppl_idx"], device=self.device)
             m = steps.g_reg_step(state, cfg, photo[idx], render[idx], ppl_gen, apply_ema=True)
@@ -134,3 +203,52 @@ class Trainer:
         metrics["ds_flag"] = s["ds_flag"]
         metrics["extreme_ds_flag"] = s["extreme"]
         return metrics
+
+    # ---------------- checkpoints --------------------------------------------
+
+    def _modules(self) -> Dict[str, torch.nn.Module]:
+        st = self.state
+        mods = {"g": st.models.generator, "e_tsr": st.models.e_tsr, "e_w": st.models.e_w,
+                "e_w_plus": st.models.e_w_plus, "d": st.d, "d_edit": st.d_edit,
+                "g_ema": st.g_ema}
+        return {k: m for k, m in mods.items() if m is not None}
+
+    def save_checkpoint(self, ckpt_dir: str, step: int, tag: str = "") -> str:
+        """Write ``{step:06d}{tag}.pt`` and its ``.json`` meta file into
+        ``ckpt_dir``; returns the checkpoint's path.  The file appears whole
+        or not at all (written aside, then renamed)."""
+        st = self.state
+        ckpt: Dict[str, Any] = {k: m.state_dict() for k, m in self._modules().items()}
+        ckpt.update({k: getattr(st, k).state_dict() for k in OPTIMIZERS
+                     if getattr(st, k) is not None})
+        ckpt["step"] = st.step
+        ckpt["mean_path_length"] = st.mean_path_length
+        os.makedirs(ckpt_dir, exist_ok=True)
+        path = os.path.join(ckpt_dir, f"{step:06d}{tag}.pt")
+        torch.save(ckpt, path + ".tmp")
+        os.replace(path + ".tmp", path)
+        meta = {
+            "step": step,
+            "tsr_encode": self.config.tsr_encode,
+            "use_tanh": self.config.use_tanh,
+            "sliced_layer": self.config.w_plus_sliced_layer,
+            "size": self.config.size,
+            "input_size": self.input_size,
+        }
+        with open(os.path.join(ckpt_dir, f"{step:06d}{tag}.json"), "w") as f:
+            json.dump(meta, f)
+        return path
+
+    def load_checkpoint(self, ckpt_dir: str, step: int) -> None:
+        """Load ``{step:06d}.pt`` into this trainer's state, in place."""
+        st = self.state
+        # The Adam step counts stay host tensors, as a fresh optimizer keeps them.
+        ckpt = torch.load(os.path.join(ckpt_dir, f"{step:06d}.pt"), map_location="cpu",
+                          weights_only=True)
+        for k, m in self._modules().items():
+            m.load_state_dict(ckpt[k])
+        for k in OPTIMIZERS:
+            if getattr(st, k) is not None:
+                getattr(st, k).load_state_dict(ckpt[k])
+        st.step = int(ckpt["step"])
+        st.mean_path_length = ckpt["mean_path_length"].to(self.device)

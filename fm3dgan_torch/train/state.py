@@ -1,6 +1,8 @@
-"""Training state: the modules, their optimizers, g_ema, the PPL mean.
+"""Training state: the modules, their optimizers, g_ema, the PPL mean, and
+the frozen loss networks the G step reads.
 
-Counterpart of ``fm3dgan/train/state.py``.  The JAX package's parameter
+Counterpart of ``fm3dgan/train/state.py`` (and of the JAX trainer's
+``frozen`` variables).  The JAX package's parameter
 partitions become optimizer parameter lists: one Adam for G plus the
 encoders whose ``*_train`` flag is set (the others get no update, as optax's
 ``set_to_zero`` leaves them), one for D and one for D_edit.  Adam takes the
@@ -54,7 +56,9 @@ def make_d_optimizer(config: TrainConfig, d: Discriminator) -> torch.optim.Adam:
 
 @dataclasses.dataclass
 class TrainState:
-    """Everything a training iteration reads and updates (in place)."""
+    """Everything a training iteration reads and updates (in place).
+    ``lpips`` and ``arcface`` are the frozen loss networks (eval mode, no
+    gradient of their own), None where the G step goes without the term."""
 
     models: FaceManipulator
     d: Discriminator
@@ -65,10 +69,13 @@ class TrainState:
     d_edit_opt: Optional[torch.optim.Adam]
     mean_path_length: torch.Tensor
     step: int = 0
+    lpips: Optional[nn.Module] = None
+    arcface: Optional[nn.Module] = None
 
     @classmethod
     def create(cls, config: TrainConfig, models: FaceManipulator, d: Discriminator,
-               d_edit: Optional[Discriminator]) -> "TrainState":
+               d_edit: Optional[Discriminator], lpips: Optional[nn.Module] = None,
+               arcface: Optional[nn.Module] = None) -> "TrainState":
         g_ema = copy.deepcopy(models.generator)
         g_ema.requires_grad_(False)
         return cls(
@@ -80,4 +87,6 @@ class TrainState:
             d_opt=make_d_optimizer(config, d),
             d_edit_opt=None if d_edit is None else make_d_optimizer(config, d_edit),
             mean_path_length=torch.zeros((), device=models.device),
+            lpips=lpips,
+            arcface=arcface,
         )

@@ -6,10 +6,14 @@ reference cadence,
 
   d_step      GAN logistic loss on the active D (D, or D_edit on DS steps)
   d_reg_step  lazy R1, weighted r1/2 * R1 * d_reg_every
-  g_step      GAN + L1 (+ face-regional) on G and the trained encoders
+  g_step      GAN + LPIPS + L1 + face-ID (+ face-regional) on G and the
+              trained encoders
   g_reg_step  lazy PPL, weighted path_reg_weight * g_reg_every * penalty
 
-plus the g_ema update.  Each step has a ``*_grads`` half that returns the
+plus the g_ema update, and ``shared_iteration``, the ``share_dg_noise``
+iteration (JAX ``fused_shared_iteration_step`` up to its PPL step): one
+encode + generate serves the D and the G update.  Each step has a
+``*_grads`` half that returns the
 loss's gradients by parameter name (what the tests hold against the JAX
 package) and applies them with the partition's Adam.  Inputs are NCHW
 float tensors in [-1, 1] on the models' device (:func:`prepare_batch` makes
@@ -23,11 +27,12 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.nn as nn
 
 from fm3dgan_torch.losses.gan import d_logistic_loss, d_r1_penalty, g_nonsaturating_loss
 from fm3dgan_torch.losses.geometry import face_regional_loss
 from fm3dgan_torch.losses.path_reg import path_regularize
-from fm3dgan_torch.losses.recon import l1_loss
+from fm3dgan_torch.losses.recon import face_identity_loss, l1_loss
 from fm3dgan_torch.pipeline.forward import FaceManipulator, _combine_w_wplus
 from fm3dgan_torch.train.config import TrainConfig
 from fm3dgan_torch.train.state import TrainState, g_enc_modules, named_params
@@ -98,10 +103,9 @@ def _active_d(state: TrainState, use_edit: bool):
 # ---------------- D step -----------------------------------------------------
 
 
-def d_step_grads(state: TrainState, config: TrainConfig, photo, render, ref, use_edit: bool,
-                 noise_generator: Optional[torch.Generator] = None) -> Tuple[Grads, Dict]:
-    with torch.no_grad():
-        fake = forward_full(state.models, photo, render, config, noise_generator, train=True)
+def d_grads_from_fake(state: TrainState, fake, ref, use_edit: bool) -> Tuple[Grads, Dict]:
+    """The D loss and its gradients on a generated batch that carries no
+    graph (shared by the D step and the shared iteration)."""
     d, _ = _active_d(state, use_edit)
     out_pred = d(fake)
     ref_pred = d(ref)
@@ -112,10 +116,21 @@ def d_step_grads(state: TrainState, config: TrainConfig, photo, render, ref, use
     return grads, metrics
 
 
-def d_step(state, config, photo, render, ref, use_edit, noise_generator=None) -> Dict:
-    grads, metrics = d_step_grads(state, config, photo, render, ref, use_edit, noise_generator)
+def _apply_d(state: TrainState, use_edit: bool, grads: Grads) -> None:
     d, opt = _active_d(state, use_edit)
     _apply(opt, named_params({"d": d}), grads)
+
+
+def d_step_grads(state: TrainState, config: TrainConfig, photo, render, ref, use_edit: bool,
+                 noise_generator: Optional[torch.Generator] = None) -> Tuple[Grads, Dict]:
+    with torch.no_grad():
+        fake = forward_full(state.models, photo, render, config, noise_generator, train=True)
+    return d_grads_from_fake(state, fake, ref, use_edit)
+
+
+def d_step(state, config, photo, render, ref, use_edit, noise_generator=None) -> Dict:
+    grads, metrics = d_step_grads(state, config, photo, render, ref, use_edit, noise_generator)
+    _apply_d(state, use_edit, grads)
     return metrics
 
 
@@ -128,51 +143,103 @@ def d_reg_step_grads(state: TrainState, config: TrainConfig, ref, use_edit: bool
 
 def d_reg_step(state, config, ref, use_edit) -> Dict:
     grads, metrics = d_reg_step_grads(state, config, ref, use_edit)
-    d, opt = _active_d(state, use_edit)
-    _apply(opt, named_params({"d": d}), grads)
+    _apply_d(state, use_edit, grads)
     return metrics
 
 
 # ---------------- G step -----------------------------------------------------
 
 
-def g_downstream_losses(fake, d, render, ref, config: TrainConfig, ds_flag: bool,
-                        extreme_ds_flag: bool):
-    """GAN + reconstruction losses with the lambda schedule of the JAX
-    ``_g_downstream_losses``.  LPIPS and face-ID need their frozen networks,
-    which are not ported yet, so they are 0 here (Trainer refuses them)."""
+def g_downstream_losses(fake, d, photo, render, ref, config: TrainConfig, ds_flag: bool,
+                        extreme_ds_flag: bool, lpips: Optional[nn.Module] = None,
+                        arcface: Optional[nn.Module] = None):
+    """GAN + LPIPS + L1 + face-ID + face-regional losses with the lambda
+    schedule of the JAX ``_g_downstream_losses``: LPIPS and L1 shrink on
+    extreme-DS iterations, where identity is held against the input photo
+    instead of the reference.  A term whose network is None (or whose weight
+    is 0) is 0.  ``hmap`` is always 0: the Trainer refuses the heatmap loss."""
     shrink = config.ep_lpips_l1_weight_shrink if extreme_ds_flag else 1.0
+    lpips_l = config.lpips_loss_lambda / shrink
     if not ds_flag:
         face_reg_l = config.rec_face_reg_loss_lambda
     elif not extreme_ds_flag:
         face_reg_l = config.ds_face_reg_loss_lambda
     else:
         face_reg_l = config.ep_face_reg_loss_lambda
-    g_loss = g_nonsaturating_loss(d(fake))
-    l1 = (config.l1_loss_lambda / shrink) * l1_loss(fake, ref)
     zero = torch.zeros((), device=fake.device)
+    g_loss = g_nonsaturating_loss(d(fake))
+    lpips_term = zero
+    if lpips is not None and lpips_l > 0:
+        lpips_term = lpips_l * lpips(fake, ref).mean()
+    l1 = (config.l1_loss_lambda / shrink) * l1_loss(fake, ref)
+    face_id = zero
+    if arcface is not None and config.face_id_loss_lambda > 0:
+        id_ref = photo if extreme_ds_flag else ref
+        n, c, h, w = fake.shape
+        if id_ref.shape[2] != h:  # encoder inputs larger than G's output: box-downsample
+            f = id_ref.shape[2] // h
+            id_ref = id_ref.reshape(n, c, h, f, w, f).mean(dim=(3, 5))
+        face_id = config.face_id_loss_lambda * face_identity_loss(
+            fake, id_ref, arcface, config.face_id_loss_type)
     face_reg = face_reg_l * face_regional_loss(render, fake) if face_reg_l > 0 else zero
-    total = g_loss + l1 + face_reg
-    return total, {"g": g_loss.detach(), "l1": l1.detach(), "face_reg": face_reg.detach()}
+    total = g_loss + lpips_term + l1 + face_id + face_reg
+    metrics = {"g": g_loss, "lpips": lpips_term, "l1": l1, "face_id": face_id, "hmap": zero,
+               "face_reg": face_reg}
+    return total, {k: v.detach() for k, v in metrics.items()}
 
 
 def g_step_grads(state: TrainState, config: TrainConfig, photo, render, ref, use_edit: bool,
                  ds_flag: bool, extreme_ds_flag: bool,
                  noise_generator: Optional[torch.Generator] = None) -> Tuple[Grads, Dict]:
     fake = forward_full(state.models, photo, render, config, noise_generator, train=True)
+    return _g_grads_from_fake(state, config, fake, photo, render, ref, use_edit, ds_flag,
+                              extreme_ds_flag)
+
+
+def _g_grads_from_fake(state, config, fake, photo, render, ref, use_edit, ds_flag,
+                       extreme_ds_flag) -> Tuple[Grads, Dict]:
     d, _ = _active_d(state, use_edit)
-    total, metrics = g_downstream_losses(fake, d, render, ref, config, ds_flag, extreme_ds_flag)
+    total, metrics = g_downstream_losses(fake, d, photo, render, ref, config, ds_flag,
+                                         extreme_ds_flag, state.lpips, state.arcface)
     return _grads_by_name(named_params(g_enc_modules(state.models, config)), total), metrics
+
+
+def _apply_g(state: TrainState, config: TrainConfig, grads: Grads, apply_ema: bool) -> None:
+    _apply(state.g_enc_opt, named_params(g_enc_modules(state.models, config)), grads)
+    state.step += 1
+    if apply_ema:
+        ema(state, config)
 
 
 def g_step(state, config, photo, render, ref, use_edit, ds_flag, extreme_ds_flag,
            noise_generator=None, apply_ema: bool = False) -> Dict:
     grads, metrics = g_step_grads(state, config, photo, render, ref, use_edit, ds_flag,
                                   extreme_ds_flag, noise_generator)
-    _apply(state.g_enc_opt, named_params(g_enc_modules(state.models, config)), grads)
-    state.step += 1
-    if apply_ema:
-        ema(state, config)
+    _apply_g(state, config, grads, apply_ema)
+    return metrics
+
+
+# ---------------- shared iteration -------------------------------------------
+
+
+def shared_iteration(state: TrainState, config: TrainConfig, photo, render, ref,
+                     use_edit: bool, ds_flag: bool, extreme_ds_flag: bool, do_r1: bool,
+                     noise_generator: Optional[torch.Generator] = None,
+                     apply_ema: bool = False) -> Dict:
+    """One encode + generate under autograd (the encoders' running
+    statistics take one update), the D step on its detached output, R1 when
+    due, then the G loss on the updated D over the same image, backward
+    through the retained graph, Adam, and EMA when ``apply_ema``.  The
+    caller runs PPL after it when due, as for the unshared steps."""
+    fake = forward_full(state.models, photo, render, config, noise_generator, train=True)
+    grads, metrics = d_grads_from_fake(state, fake.detach(), ref, use_edit)
+    _apply_d(state, use_edit, grads)
+    if do_r1:
+        metrics.update(d_reg_step(state, config, ref, use_edit))
+    grads, g_metrics = _g_grads_from_fake(state, config, fake, photo, render, ref, use_edit,
+                                          ds_flag, extreme_ds_flag)
+    _apply_g(state, config, grads, apply_ema)
+    metrics.update(g_metrics)
     return metrics
 
 

@@ -378,3 +378,235 @@ def test_small_training_grads_on_card_match_cpu(cuda_device):
                 if not ok:
                     bad.append((step, part, name, rel))
     assert not bad, bad
+
+
+@pytest.mark.gpu
+def test_small_g_step_with_loss_networks_on_card_matches_cpu(cuda_device):
+    """The G step with LPIPS and ArcFace (Trainer's default), extreme-DS
+    branch, on a size-16 state: the card against the CPU, same seeded
+    weights and fixed noise; the losses at rtol 1e-4 and each gradient held
+    to ``chip_smoke.hold_gradient`` with the CPU's float64 run as the exact
+    reference.  The card's convolutions run without cuDNN, whose float32
+    gradients are much further off float64 at these widths; the test prints
+    the worst relative error of both runs (PERF.md).  The kernels
+    launch all the same."""
+    from chip_smoke import hold_gradient
+
+    tg = Trainer(TINY_TRAIN, seed=7, device=cuda_device, input_size=128)
+    tc = Trainer(TINY_TRAIN, seed=7, device="cpu", input_size=128)
+    photo, render, ref, _ = _train_inputs(9)
+    args = (True, True, True)  # D_edit, DS, extreme DS
+    ops.reset_launches()
+    with torch.backends.cudnn.flags(enabled=False, allow_tf32=False):
+        got, got_m = steps.g_step_grads(tg.state, TINY_TRAIN,
+                                        *(t.to(cuda_device) for t in (photo, render, ref)), *args)
+    assert all(ops.launch_counts()[k] > 0 for k in ("blur", "fused_leaky_relu_bwd")), ops.launch_counts()
+    with_cudnn, _ = steps.g_step_grads(tg.state, TINY_TRAIN,
+                                       *(t.to(cuda_device) for t in (photo, render, ref)), *args)
+    want, want_m = steps.g_step_grads(tc.state, TINY_TRAIN, photo, render, ref, *args)
+    exact, _ = steps.g_step_grads(tc.float64_state(), TINY_TRAIN,
+                                  *(t.double() for t in (photo, render, ref)), *args)
+    for what, run in (("card without cuDNN", got), ("card with cuDNN", with_cudnn), ("CPU", want)):
+        worst = max((float((run[p][n].cpu().double() - e).abs().max() / e.abs().max()), f"{p}.{n}")
+                    for p, ts in exact.items() for n, e in ts.items()
+                    if float(e.abs().max()) > 1e-3 * max(float(x.abs().max()) for x in ts.values()))
+        print(f"G step float32 gradients, {what}: worst relative error {worst[0]:.3e} ({worst[1]})")
+    for k in ("g", "lpips", "l1", "face_id"):
+        assert float(want_m[k]) > 0, k
+        torch.testing.assert_close(float(got_m[k]), float(want_m[k]), rtol=1e-4, atol=0)
+    bad = []
+    for part, tensors in exact.items():
+        part_max = max(float(e.abs().max()) for e in tensors.values())
+        for name, e in tensors.items():
+            ok, rel = hold_gradient(got[part][name].cpu(), want[part][name], e, part_max)
+            if not ok:
+                bad.append((part, name, rel))
+    assert not bad, bad
+
+
+def _apart(a, b, lr):
+    """Elements of two parameter tensors more than 1e-6 apart; none may be
+    further apart than Adam's first steps can take two runs whose gradient
+    differs in sign by rounding (two steps of lr)."""
+    diff = (a - b).abs()
+    assert float(diff.max()) <= 2 * lr * 1.001
+    return int((diff > 1e-6).sum())
+
+
+@pytest.mark.gpu
+def test_shared_iteration_relation_on_card(cuda_device):
+    """On the card, DS iteration with R1: the shared iteration equals the D
+    step, R1 and the G step run with the same noise, but for the encoders'
+    running statistics (one update against two) and at most one element in
+    ten thousand that Adam's first step sent the other way."""
+    import dataclasses
+
+    cfg = dataclasses.replace(TINY_TRAIN, d_reg_every=3)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        shared, unshared = (Trainer(cfg, seed=4, device=cuda_device, input_size=128) for _ in range(2))
+        photo, render, ref, _ = (t.to(cuda_device) for t in _train_inputs(10))
+        s = shared.schedule(3, 4)
+        assert s["do_r1"] and s["ds_flag"] and not s["will_g_reg"]
+        encoders = ("e_tsr", "e_w", "e_w_plus")
+        before = {k: {n: b.clone() for n, b in getattr(shared.state.models, k).named_buffers()}
+                  for k in encoders}
+        gen = lambda: torch.Generator(device=cuda_device).manual_seed(9)  # noqa: E731
+        flags = (s["use_edit"], s["ds_flag"], s["extreme"])
+        a = steps.shared_iteration(shared.state, cfg, photo, render, ref, *flags, True,
+                                   noise_generator=gen(), apply_ema=True)
+        b = steps.d_step(unshared.state, cfg, photo, render, ref, s["use_edit"], gen())
+        b.update(steps.d_reg_step(unshared.state, cfg, ref, s["use_edit"]))
+        b.update(steps.g_step(unshared.state, cfg, photo, render, ref, *flags, gen(), apply_ema=True))
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    for k in ("d", "r1", "g", "lpips", "l1", "face_id"):
+        torch.testing.assert_close(float(a[k]), float(b[k]), rtol=1e-5, atol=0)
+    sa, sb = shared.state, unshared.state
+    n_apart = n = 0
+    for k in ("generator", *encoders):
+        ma, mb = getattr(sa.models, k), getattr(sb.models, k)
+        for pa, pb in zip(ma.parameters(), mb.parameters()):
+            n_apart += _apart(pa, pb, cfg.lr * cfg.g_reg_ratio)
+            n += pa.numel()
+        buffers_b = dict(mb.named_buffers())
+        for name, ba in ma.named_buffers():
+            if name.endswith(("running_mean", "running_var")):
+                torch.testing.assert_close(buffers_b[name], 1.9 * ba - 0.9 * before[k][name],
+                                           rtol=0, atol=1e-5)
+    for pa, pb in zip(sa.d_edit.parameters(), sb.d_edit.parameters()):
+        n_apart += _apart(pa, pb, cfg.lr * cfg.d_reg_ratio)
+        n += pa.numel()
+    assert n_apart <= 1e-4 * n, (n_apart, n)
+
+
+@pytest.mark.gpu
+def test_training_cli_runs_two_iterations_on_card(cuda_device, tmp_path):
+    """``python -m fm3dgan_torch.tools.train_3_encoder --fake_data`` on the
+    card (its default device), size 16: two logged iterations, finite."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cmd = [sys.executable, "-m", "fm3dgan_torch.tools.train_3_encoder", "--fake_data",
+           "--size", "16", "--latent", "32", "--width_mult", "0.0625", "--input_size", "128",
+           "--rec_batch", "2", "--ds_batch", "2", "--ds_face_reg_loss_lambda", "0",
+           "--ep_face_reg_loss_lambda", "0", "--training_iters", "2", "--log_every", "1",
+           "--exp_dir", str(tmp_path)]
+    proc = subprocess.run(cmd, cwd=repo, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    with open(tmp_path / "training_log.jsonl") as f:
+        lines = [json.loads(line) for line in f]
+    assert [line["iter"] for line in lines] == [0, 1]
+    for line in lines:
+        assert all(np.isfinite(v) for v in line.values() if isinstance(v, float)), line
+
+
+@pytest.mark.gpu
+def test_g_step_calls_stay_near_float64_on_card(cuda_device):
+    """Every float32 call of one 256 px G step (full width, LPIPS and
+    ArcFace, batch 4) recomputed on float64 copies of its inputs, cuDNN off
+    for the recomputation: the worst relative error max|y32 - y64| /
+    max|y64| of each call is printed (the ten largest) and held under 1e-3.
+    In-place calls and calls without float32 inputs are skipped."""
+    import collections
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves, tree_map
+
+    worst = collections.defaultdict(float)
+    skip = ("copy", "empty", "zero", "fill", "detach", "view", "clone", "alias", "expand",
+            "permute", "transpose", "slice", "select", "squeeze", "reshape", "lift", "ones", "full",
+            "random", "normal", "uniform", "index", "t.default")
+
+    class Float64Recompute(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            name = str(func)
+            tensors = [a for a in tree_leaves((args, kwargs)) if isinstance(a, torch.Tensor)]
+            if (name.split(".")[1].endswith("_") or any(k in name for k in skip)
+                    or not any(a.dtype == torch.float32 for a in tensors)
+                    or any(a.is_floating_point() and a.dtype != torch.float32 for a in tensors)):
+                return out
+            up = lambda a: a.double() if isinstance(a, torch.Tensor) and a.dtype == torch.float32 else a  # noqa: E731
+            with torch.backends.cudnn.flags(enabled=False):
+                ref = func(*tree_map(up, args), **tree_map(up, kwargs))
+            outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor) and t.dtype == torch.float32]
+            refs = [t for t in tree_leaves(ref) if isinstance(t, torch.Tensor) and t.dtype == torch.float64]
+            in_scale = max(float(a.abs().max()) for a in tensors if a.dtype == torch.float32 and a.numel())
+            for i, (a, b) in enumerate(zip(outs, refs)):
+                scale = float(b.abs().max()) if b.numel() else 0.0
+                if scale > 1e-5 * in_scale:
+                    key = f"{name}[{i}] {[tuple(t.shape) for t in tensors][:3]}"
+                    worst[key] = max(worst[key], float((a.double() - b).abs().max()) / scale)
+            return out
+
+    cfg = TrainConfig()
+    trainer = Trainer(cfg, seed=0, device=cuda_device)
+    g = torch.Generator().manual_seed(11)
+    photo, render = (torch.randint(0, 256, (4, 256, 256, 3), generator=g, dtype=torch.uint8)
+                     for _ in range(2))
+    ref = photo[[1, 0, 3, 2]]
+    photo, render, ref = (steps.prepare_batch(a, cuda_device) for a in (photo, render, ref))
+    with Float64Recompute():
+        steps.g_step_grads(trainer.state, cfg, photo, render, ref, True, True, False)
+    torch.cuda.synchronize()
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:10]
+    for key, err in top:
+        print(f"{err:.3e} {key}")
+    assert top and top[0][1] < 1e-3, top[:3]
+
+
+@pytest.mark.gpu
+def test_noise_weight_gradients_cancel_at_256px(cuda_device):
+    """Why G's noise-weight gradients are float32's weakest tensors once
+    LPIPS and ArcFace are in the G step (256 px, full width, batch 16, DS
+    branch, fixed noise, the plain versions): each is sum(noise * sum_c g)
+    over the batch, and the exact sum is a small part of its terms' magnitude
+    (kappa = sum |terms| / |sum|, printed with the float32 errors).  The
+    float32 gradient reduced again in float64 moves by less than a tenth
+    of its error, so the error comes from the incoming gradient, not from
+    the reduction."""
+    from chip_smoke import _train_inputs
+    from fm3dgan_torch.nn.modulated import NoiseInjection
+
+    torch.backends.cudnn.deterministic = True
+    cfg = TrainConfig()
+    trainer = Trainer(cfg, seed=0, device=cuda_device)
+    batch = [steps.prepare_batch(a, cuda_device) for a in _train_inputs(16, 11, ds_flag=True)]
+
+    def run(state, dtype):
+        captured, orig = {}, NoiseInjection.forward
+        names = {m: n for n, m in state.models.generator.named_modules() if isinstance(m, NoiseInjection)}
+
+        def forward(self, image, noise=None, generator=None):
+            out = orig(self, image, noise, generator)
+            out.register_hook(lambda g, m=self, noise=noise: captured.__setitem__(names[m], (g, noise)))
+            return out
+
+        NoiseInjection.forward = forward
+        try:
+            with ops.plain_versions():
+                grads, _ = steps.g_step_grads(state, cfg, *(t.to(dtype) for t in batch), True, True, False)
+        finally:
+            NoiseInjection.forward = orig
+        out = {}
+        for name, (g, noise) in captured.items():
+            terms = g.double().sum(1, keepdim=True) * noise.double()
+            out[name] = (float(grads["g"][f"{name}.weight"]), float(terms.sum()), float(terms.abs().sum()))
+        return out
+
+    try:
+        got, exact = run(trainer.state, torch.float32), run(trainer.float64_state(), torch.float64)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    for name, (e, _, abs_terms) in exact.items():
+        g32, g32_f64sum, _ = got[name]
+        err, err_f64sum = abs(g32 - e) / abs(e), abs(g32_f64sum - e) / abs(e)
+        print(f"{name}: kappa {abs_terms / abs(e):.0f}, float32 error {err:.2e}, "
+              f"reduced in float64 {err_f64sum:.2e}")
+        assert abs(err_f64sum - err) <= 0.1 * err + 1e-6, name

@@ -13,7 +13,14 @@ import torch
 
 from fm3dgan.compat import torch_port
 from fm3dgan_torch.compat import from_jax
-from fm3dgan_torch.models import Discriminator, Generator, GradualStyleEncoder, ResNet18Encoder
+from fm3dgan_torch.models import (
+    LPIPS,
+    Discriminator,
+    Generator,
+    GradualStyleEncoder,
+    ResNet18Encoder,
+    ResNetFace18,
+)
 from fm3dgan_torch.models.generator import channel_table
 from fm3dgan_torch.pipeline import FaceManipulator
 from fm3dgan_torch.train import TrainConfig, Trainer
@@ -35,7 +42,8 @@ def test_importing_the_port_loads_no_jax():
         "import sys\n"
         "import fm3dgan_torch, fm3dgan_torch.ops, fm3dgan_torch.nn, fm3dgan_torch.models\n"
         "import fm3dgan_torch.pipeline, fm3dgan_torch.compat\n"
-        "import fm3dgan_torch.losses, fm3dgan_torch.train\n"
+        "import fm3dgan_torch.losses, fm3dgan_torch.train, fm3dgan_torch.train.preempt\n"
+        "import fm3dgan_torch.data, fm3dgan_torch.data.native, fm3dgan_torch.tools.train_3_encoder\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
     )
@@ -113,6 +121,23 @@ def test_encoder_state_dict_round_trip(which):
     floats = _randomized({k: v for k, v in sd.items() if "num_batches" not in k}, 1)
     sd.update(floats)
     back = from_jax({which: convert(sd)})[which]
+    _assert_same({k: v.numpy() for k, v in back.items()}, sd)
+    module.load_state_dict(back)
+
+
+@pytest.mark.parametrize("which", ["arcface", "lpips"])
+def test_loss_network_state_dict_round_trip(which):
+    """The port's own state dict -> convert_arcface / convert_lpips (heads and
+    torchvision backbone) -> from_jax, and back into the port's module."""
+    module = ResNetFace18(input_size=32) if which == "arcface" else LPIPS()
+    sd = {k: v.numpy() for k, v in module.state_dict().items()}
+    sd.update(_randomized({k: v for k, v in sd.items() if "num_batches" not in k}, 3))
+    if which == "arcface":
+        variables = torch_port.convert_arcface(sd)
+    else:
+        variables = torch_port.convert_lpips({k: v for k, v in sd.items() if k.startswith("lin")},
+                                             {k: v for k, v in sd.items() if k.startswith("features")})
+    back = from_jax({which: variables})[which]
     _assert_same({k: v.numpy() for k, v in back.items()}, sd)
     module.load_state_dict(back)
 

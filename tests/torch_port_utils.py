@@ -4,7 +4,9 @@ One set of weights drives both packages: the JAX package's own init, with
 every inert leaf (zero biases, zero noise weights, identity BatchNorm
 statistics) replaced by seeded numpy values so that each path carries
 signal, then handed to the port through ``fm3dgan_torch.compat.from_jax``;
-and the training-step pair of ``tests/test_torch_train*.py``.
+and the training-step pair of ``tests/test_torch_train*.py``.  The frozen
+loss networks take a reference-layout state dict (``loss_net_state_dict``)
+on both sides, the JAX one through ``fm3dgan.compat.torch_port``.
 """
 
 import numpy as np
@@ -14,6 +16,7 @@ import jax
 import jax.numpy as jnp
 from flax.core import unfreeze
 
+from fm3dgan.compat import torch_port
 from fm3dgan.models.discriminator import Discriminator as JaxDiscriminator
 from fm3dgan.pipeline.forward import FaceManipulator as JaxFaceManipulator
 from fm3dgan.train.config import TrainConfig as JaxTrainConfig
@@ -24,7 +27,7 @@ from fm3dgan_torch.compat.from_jax import (
     psp_from_jax,
     resnet18_from_jax,
 )
-from fm3dgan_torch.models import Discriminator
+from fm3dgan_torch.models import LPIPS, Discriminator, ResNetFace18
 from fm3dgan_torch.pipeline import FaceManipulator
 from fm3dgan_torch.train import TrainConfig, TrainState
 
@@ -62,6 +65,35 @@ def nchw(a):
 
 def to_nhwc(t):
     return t.detach().permute(0, 2, 3, 1).numpy()
+
+
+def loss_net_state_dict(module, seed):
+    """A seeded reference-layout state dict (numpy) for ``module``, loaded
+    into it too: conv and linear weights normal with variance 1/fan_in,
+    their biases, the BatchNorm statistics and affine parameters, the PReLU
+    slopes and the LPIPS heads uniform in ranges that keep every path
+    carrying signal."""
+    rng = np.random.RandomState(seed)
+    rand = lambda t, lo, hi: torch.from_numpy(rng.uniform(lo, hi, tuple(t.shape)).astype(np.float32))  # noqa: E731
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
+                fan_in = m.weight[0].numel()
+                m.weight.copy_(torch.from_numpy(
+                    (rng.standard_normal(tuple(m.weight.shape)) / np.sqrt(fan_in)).astype(np.float32)))
+                if m.bias is not None:
+                    m.bias.copy_(rand(m.bias, -0.1, 0.1))
+            elif isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                for t, lo, hi in ((m.weight, 0.5, 1.5), (m.running_var, 0.5, 1.5),
+                                  (m.bias, -0.1, 0.1), (m.running_mean, -0.1, 0.1)):
+                    t.copy_(rand(t, lo, hi))
+            elif isinstance(m, torch.nn.PReLU):
+                m.weight.copy_(rand(m.weight, 0.05, 0.4))
+        for k in range(5):
+            w = getattr(module, f"lin{k}", None)
+            if w is not None:
+                w.model[1].weight.copy_(rand(w.model[1].weight, 0.5, 1.5) / w.model[1].weight.numel())
+    return {k: v.numpy().copy() for k, v in module.state_dict().items()}
 
 
 # ---- the 2x resampling edge grid (tests/test_torch_{ops,autograd}.py) -------
@@ -131,8 +163,10 @@ MEAN_PATH_LENGTH = 0.3
 
 
 def make_train_pair():
-    """A tiny 3-encoder stack and two discriminators, JAX and port with the
-    same weights, a port TrainState, and numpy/NCHW inputs."""
+    """A tiny 3-encoder stack, two discriminators and the frozen LPIPS and
+    ArcFace (for the 8 px face-recognition input of a 16 px image), JAX and
+    port with the same weights, a port TrainState holding them, and
+    numpy/NCHW inputs."""
     jm = JaxFaceManipulator.create(**SMALL)
     variables = perturb(to_numpy_tree(jm.init_variables(jax.random.PRNGKey(0))), 0)
     jd = JaxDiscriminator(size=16, width_mult=1 / 16)
@@ -144,8 +178,16 @@ def make_train_pair():
     d, d_edit = Discriminator(size=16, width_mult=1 / 16), Discriminator(size=16, width_mult=1 / 16)
     d.load_state_dict(discriminator_from_jax(vd["d"]))
     d_edit.load_state_dict(discriminator_from_jax(vd["d_edit"]))
+    lpips, arcface = LPIPS(), ResNetFace18(input_size=8)
+    sd_l, sd_a = loss_net_state_dict(lpips, 20), loss_net_state_dict(arcface, 21)
+    frozen = {"lpips": torch_port.convert_lpips({k: v for k, v in sd_l.items() if k.startswith("lin")},
+                                                {k: v for k, v in sd_l.items() if k.startswith("features")}),
+              "arcface": torch_port.convert_arcface(sd_a)}
+    for net, sd in ((lpips, sd_l), (arcface, sd_a)):
+        net.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+        net.requires_grad_(False).eval()
     cfg = TrainConfig(**CFG)
-    state = TrainState.create(cfg, models, d, d_edit)
+    state = TrainState.create(cfg, models, d, d_edit, lpips=lpips, arcface=arcface)
     state.mean_path_length = torch.tensor(MEAN_PATH_LENGTH)
 
     rng = np.random.RandomState(10)
@@ -153,7 +195,7 @@ def make_train_pair():
     render = rng.uniform(-1, 1, (4, 128, 128, 3)).astype(np.float32)
     ref = rng.uniform(-1, 1, (4, 16, 16, 3)).astype(np.float32)
     ppl_noise = (rng.randn(2, 16, 16, 3) / 16).astype(np.float32)
-    return dict(jm=jm, jd=jd, variables=variables, vd=vd, jcfg=JaxTrainConfig(**CFG), cfg=cfg,
+    return dict(jm=jm, jd=jd, variables=variables, vd=vd, frozen=frozen, jcfg=JaxTrainConfig(**CFG), cfg=cfg,
                 state=state, np_in=(photo, render, ref, ppl_noise),
                 t_in=tuple(nchw(a) for a in (photo, render, ref, ppl_noise)))
 
