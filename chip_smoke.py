@@ -35,13 +35,27 @@ Builds the hand-written CUDA kernels of ``fm3dgan_torch`` from
    the kernel phase's per-shape weights say; times the loss networks'
    forward and input gradient at the G step's shapes; then 2 iterations in
    bfloat16 and 2 with ``share_dg_noise`` (one G forward fewer each);
-5. CLI phase: ``python -m fm3dgan_torch.tools.train_3_encoder`` (its
-   ``main``) on fake data, 6 iterations at 256 px with a checkpoint after
-   iteration 3, then resumed from it: iteration 4's D and G losses must
-   agree with the uninterrupted run's.
+5. heatmap phases, on ``TrainConfig(hmap_loss_lambda=1, hmap_iter_thres=0)``
+   with its FAN (256 px input): FAN's forward and forward plus input
+   gradient at the G step's shapes (16 + 16 images) in float32 and
+   bfloat16, and against float64; 2 float32 iterations, which must launch
+   each kernel as the iterations without FAN do; one G step with the
+   heatmap term held as in the gradient phase;
+6. eval phase: ``QuantEvalHook`` on that trainer with LPIPS, ArcFace, a
+   seeded InceptionV3 and FAN, 64 reconstruction and 16 x 4 edit images:
+   seconds per pass, the EMA forward's img/s, its launches (forward kernels
+   only), and the scores and a sample grid through the kernels against the
+   plain versions;
+7. CLI phase: ``python -m fm3dgan_torch.tools.train_3_encoder`` (its
+   ``main``) on fake data, 6 iterations at 256 px with the heatmap loss, a
+   sample grid every 2 iterations and a checkpoint with its eval line (FID
+   against statistics the script writes) after iteration 3, then resumed
+   from it: iteration 4's D and G losses must agree with the uninterrupted
+   run's.
 
-Prints one JSON line per measurement, the card's name and power limit, a
-``{"kernels": [...]}`` summary, and last ``{"ok": true, "device": ...}``.
+Prints one JSON line per measurement and per phase's seconds, the card's
+name and power limit, a ``{"kernels": [...]}`` summary, and last
+``{"ok": true, "device": ...}``.
 Exits non-zero, printing no result, without a CUDA device, when a kernel
 does not build or launch, or when any check fails.
 """
@@ -71,6 +85,13 @@ TRAIN_ITERS = 6
 BF16_ITERS = 2
 SHARED_ITERS = (1, 2)  # DS and reconstruction, no regulariser
 CLI_ITERS, CLI_SAVE, CLI_CHECK = 6, 3, 4  # run, checkpoint after, iteration compared on resume
+CLI_SAMPLE = 2  # the CLI's val_sample_freq: grids after iterations 2 and 4
+# The heatmap loss from the first iteration on; its gradient phase's batch.
+HMAP_CONFIG = dict(hmap_loss_lambda=1.0, hmap_iter_thres=0)
+HMAP_GRAD_BATCH = 8
+FAN_BATCH = 16  # fakes (and as many renders) per G step
+FAN_FLOAT64_BATCH = 2
+EDIT_PHOTOS = 16  # photos per edit batch, each with 4 renders
 
 # (C, R): blur input [N, C, 2R+1, 2R+1] after each upsampling transposed conv.
 BLUR_SHAPES = [(512, 4), (512, 8), (512, 16), (512, 32), (256, 64), (128, 128)]
@@ -518,26 +539,38 @@ def gradient_phase(ops, train, trainer):
         losses = {k: float(v) for k, v in {**g_losses, **r1_losses}.items()}
         return {"g_step": g, "r1": r1}, losses
 
+    rec = _hold_gradients(ops, trainer, run, (photo, render, ref), "gradients", GRAD_BATCH)
+    require(rec["losses"]["lpips"] > 0 and rec["losses"]["face_id"] > 0,
+            f"the G step ran without its loss networks: {rec['losses']}")
+    return rec
+
+
+def _hold_gradients(ops, trainer, run, inputs, phase, batch):
+    """``run(state, *inputs) -> ({step: {part: {name: grad}}}, losses)``
+    with cuDNN's deterministic algorithms through the kernels, then under
+    ``plain_versions()`` twice and once in float64 (``trainer.float64_state``):
+    the plain runs launch no kernel, the plain repeat equals the plain run to
+    the bit, the float64 losses agree with the float32 ones within 1e-4 and
+    every parameter tensor passes :func:`hold_gradient`."""
+    st = trainer.state
     torch.backends.cudnn.deterministic = True
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    got, got_losses = run(st, photo, render, ref)
+    got, got_losses = run(st, *inputs)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     ops.reset_launches()
     with ops.plain_versions():
-        want, _ = run(st, photo, render, ref)
-        again, _ = run(st, photo, render, ref)
+        want, _ = run(st, *inputs)
+        again, _ = run(st, *inputs)
         state64 = trainer.float64_state()
-        exact, exact_losses = run(state64, photo.double(), render.double(), ref.double())
+        exact, exact_losses = run(state64, *(x.double() for x in inputs))
     torch.cuda.synchronize()
     plain_counts = ops.launch_counts()
     del state64
     torch.backends.cudnn.deterministic = False
-    require(not any(plain_counts.values()), f"gradient phase plain runs launched {plain_counts}")
-    require(got_losses["lpips"] > 0 and got_losses["face_id"] > 0,
-            f"the G step ran without its loss networks: {got_losses}")
+    require(not any(plain_counts.values()), f"{phase} plain runs launched {plain_counts}")
     # The float64 run computes the same function: its losses agree with the
     # float32 ones to float32 rounding.
     loss_rel = {k: abs(got_losses[k] - v) / max(abs(v), 1e-30) for k, v in exact_losses.items()
@@ -568,7 +601,7 @@ def gradient_phase(ops, train, trainer):
                 plain_off += rel["plain_vs_exact"] > 1e-4
                 if rel["kernel_vs_plain"] > 1e-4:
                     over.append((what, rel))
-    rec = dict(phase="gradients", batch=GRAD_BATCH, dtype="float32", tensors=n,
+    rec = dict(phase=phase, batch=batch, dtype="float32", tensors=n,
                zero_in_exact_arithmetic=zero, worst_rel_diff=worst,
                plain_over_1e4_from_exact=plain_off,
                kernel_vs_plain_over_1e4=over, plain_repeat_differs=repeat_differs,
@@ -578,7 +611,28 @@ def gradient_phase(ops, train, trainer):
     emit(rec)
     require(not repeat_differs, f"the plain path does not reproduce itself: {repeat_differs}")
     require(not fails, f"gradients outside their bar: {fails}")
-    require(all(v > 0 for v in counts.values()), f"gradient phase launches {counts}")
+    require(all(v > 0 for v in counts.values()), f"{phase} launches {counts}")
+    return rec
+
+
+def hmap_gradient_phase(ops, train, trainer):
+    """One G step with the FAN heatmap term (DS branch with D_edit, LPIPS,
+    ArcFace, batch ``HMAP_GRAD_BATCH``), held as the gradient phase holds
+    the G step (:func:`_hold_gradients`); the heatmap loss must be finite
+    and positive."""
+    steps, cfg = train.steps, trainer.config
+    photo, render, ref = (steps.prepare_batch(a, "cuda")
+                          for a in _train_inputs(HMAP_GRAD_BATCH, 12, ds_flag=True))
+
+    def run(state, photo, render, ref):
+        g, losses = steps.g_step_grads(state, cfg, photo, render, ref, use_edit=True,
+                                       ds_flag=True, extreme_ds_flag=False, apply_hmap=True)
+        return {"g_step": g}, {k: float(v) for k, v in losses.items()}
+
+    rec = _hold_gradients(ops, trainer, run, (photo, render, ref), "hmap_gradients",
+                          HMAP_GRAD_BATCH)
+    require(math.isfinite(rec["losses"]["hmap"]) and rec["losses"]["hmap"] > 0,
+            f"the heatmap term did not fire: {rec['losses']}")
     return rec
 
 
@@ -598,10 +652,20 @@ def _branch(trainer, i) -> str:
     return "+".join([name, *regs])
 
 
+ALLOCATOR_COUNTS = ("num_device_alloc", "num_device_free", "num_alloc_retries")
+
+
+def _allocator_counts():
+    """cudaMalloc and cudaFree calls of the caching allocator so far, and
+    its retries after freeing its cache (each of which synchronizes)."""
+    stats = torch.cuda.memory_stats()
+    return {k: stats.get(k, 0) for k in ALLOCATOR_COUNTS}
+
+
 def training_phase(ops, train, trainer, iterations, dtype_name, per_iteration,
                    check_state=False):
     """``Trainer.train_iteration`` on ``iterations``; returns the launches of
-    the whole run and the ms of each iteration.  Each iteration without
+    the whole run, the ms of each iteration and its losses.  Each iteration without
     regulariser must launch each kernel as often as ``per_iteration`` says;
     with ``check_state`` every partition, g_ema and the BatchNorm statistics
     must have moved, the PPL mean be positive and every kernel have run."""
@@ -610,24 +674,27 @@ def training_phase(ops, train, trainer, iterations, dtype_name, per_iteration,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    ms_by_iteration = {}
+    ms_by_iteration, losses_by_iteration = {}, {}
     for i in iterations:
         photo, render, ref = _train_inputs(TRAIN_BATCH, 100 + i, trainer.config.is_ds_iter(i))
         before_i = ops.launch_counts()
+        alloc_before = _allocator_counts()
         t0 = time.perf_counter()
         m = trainer.train_iteration(i, photo, render, ref)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
+        alloc = {k: v - alloc_before[k] for k, v in _allocator_counts().items()}
         counts = {k: v - before_i[k] for k, v in ops.launch_counts().items()}
         losses = {k: float(v) for k, v in m.items() if torch.is_tensor(v)}
         ms_by_iteration[i] = ms
+        losses_by_iteration[i] = losses
         rec = dict(phase="train", dtype=dtype_name, iteration=i, batch=TRAIN_BATCH,
                    share_dg_noise=trainer.config.share_dg_noise, branch=_branch(trainer, i),
                    ds_flag=m["ds_flag"], extreme_ds_flag=m["extreme_ds_flag"],
                    use_edit=bool(m["ds_flag"] and trainer.config.use_separate_d),
                    r1_step=i % trainer.config.d_reg_every == 0,
                    ppl_step=i % trainer.config.g_reg_every == 0,
-                   losses=losses, ms=ms, launches=counts)
+                   losses=losses, ms=ms, launches=counts, allocator=alloc)
         emit(rec)
         require(all(math.isfinite(v) for v in losses.values()), f"{dtype_name} iteration {i}: {losses}")
         if not (rec["r1_step"] or rec["ppl_step"]):
@@ -647,7 +714,7 @@ def training_phase(ops, train, trainer, iterations, dtype_name, per_iteration,
               iterations=list(iterations), batch=TRAIN_BATCH, launches=launches,
               ms_by_branch={_branch(trainer, i): ms for i, ms in ms_by_iteration.items()},
               max_memory_allocated_bytes=peak, mean_path_length=float(st.mean_path_length)))
-    return launches, ms_by_iteration
+    return launches, ms_by_iteration, losses_by_iteration
 
 
 def loss_net_phase(trainer, iteration_ms):
@@ -695,14 +762,26 @@ def cli_phase(ops):
     Adam, which divides each gradient by its root mean square, carried the
     rounding of that iteration's D update into its G loss by 1.25e-5.  That
     would hide what the comparison is for: whether the checkpoint holds the
-    whole training state."""
+    whole training state.  The runs also train with the heatmap loss, write
+    a sample grid every ``CLI_SAMPLE`` iterations and score the EMA model
+    at the checkpoint (FID against statistics written here), all of which
+    the uninterrupted run must show."""
+
+    import numpy as np
+
+    from fm3dgan_torch.eval.fid import save_stats
     from fm3dgan_torch.tools import train_3_encoder as cli
 
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_cli")
     shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    stats = os.path.join(root, "real_stats.pkl")
+    save_stats(stats, np.zeros(2048), np.eye(2048))
     first, resumed = os.path.join(root, "run"), os.path.join(root, "resumed")
     args = ["--fake_data", "--training_iters", str(CLI_ITERS), "--model_save_freq", str(CLI_SAVE),
-            "--log_every", "1"]
+            "--log_every", "1", "--val_sample_freq", str(CLI_SAMPLE), "--fid_stats_path", stats,
+            "--hmap_loss_lambda", str(HMAP_CONFIG["hmap_loss_lambda"]),
+            "--hmap_iter_thres", str(HMAP_CONFIG["hmap_iter_thres"])]
     rec = dict(phase="cli", cudnn_deterministic=True)
     torch.backends.cudnn.deterministic = True
     try:
@@ -724,10 +803,25 @@ def cli_phase(ops):
         torch.cuda.synchronize()
         rec["resumed_run_s"] = time.perf_counter() - t0
         require(rc == 0, f"the resumed CLI exited {rc}")
-        logs = {}
+        logs, evals = {}, []
         for name, exp in (("run", first), ("resumed", resumed)):
             with open(os.path.join(exp, "training_log.jsonl")) as f:
-                logs[name] = {line["iter"]: line for line in map(json.loads, f)}
+                lines = [json.loads(line) for line in f]
+            logs[name] = {line["iter"]: line for line in lines if "iter" in line}
+            evals += [line["eval"] for line in lines if name == "run" and "eval" in line]
+        rec["samples"] = sorted(os.listdir(os.path.join(first, "sample")))
+        rec["eval"] = evals
+        rec["hmap"] = {i: line["hmap"] for i, line in logs["run"].items()}
+        require(rec["samples"] == [f"{i:06d}.png" for i in range(CLI_SAMPLE, CLI_ITERS, CLI_SAMPLE)],
+                f"sample grids {rec['samples']}")
+        require(len(evals) == 1 and evals[0]["eval_step"] == CLI_SAVE
+                and all(math.isfinite(v) for k, v in evals[0].items()
+                        if k not in ("edit_hmap", "edit_landmark")),
+                f"eval lines {evals}")
+        # hmap_iter_thres 0: the term fires from iteration 1 on (strictly past it).
+        require(rec["hmap"][0] == 0.0 and all(math.isfinite(h) and h > 0
+                                              for i, h in rec["hmap"].items() if i > 0),
+                f"heatmap loss {rec['hmap']}")
         require(sorted(logs["run"]) == list(range(CLI_ITERS)), f"iterations {sorted(logs['run'])}")
         require(sorted(logs["resumed"]) == list(range(CLI_SAVE + 1, CLI_ITERS)),
                 f"resumed iterations {sorted(logs['resumed'])}")
@@ -744,6 +838,161 @@ def cli_phase(ops):
     finally:
         torch.backends.cudnn.deterministic = False
         shutil.rmtree(root, ignore_errors=True)
+    return rec
+
+
+def fan_phase(train, trainer):
+    """FAN at the G step's shapes (``FAN_BATCH`` fakes and as many renders,
+    256 px, the trainer's FAN weights): the forward of both batches, and the
+    heatmap loss's forward plus its input gradient, in float32 and bfloat16,
+    ms by CUDA events around 5 calls after 2; peak memory of the float32
+    gradient; the G step's gradients without and with the heatmap term; and
+    the float32 heatmaps of ``FAN_FLOAT64_BATCH`` images against a float64
+    run of the same weights, within 1e-4 of the largest (the module bar)."""
+    from fm3dgan_torch.losses import heat_map_loss
+    from fm3dgan_torch.models.fan_landmark import FAN, fan_heatmap_fn
+
+    fan32, size = trainer.state.fan, trainer.fan_input_size
+    g = torch.Generator(device="cuda").manual_seed(31)
+    px = trainer.input_size
+    fake = (torch.rand(FAN_BATCH, 3, px, px, device="cuda", generator=g) * 2 - 1).requires_grad_(True)
+    render = torch.rand(FAN_BATCH, 3, px, px, device="cuda", generator=g) * 2 - 1
+    both = torch.cat([fake.detach(), render])
+
+    def copy_of(dtype):
+        net = FAN(dtype=dtype)
+        net.load_state_dict(fan32.state_dict())
+        return net.requires_grad_(False).eval().cuda()
+
+    rec = dict(phase="fan", batch=FAN_BATCH, input_size=size)
+    for dtype, net in ((torch.float32, fan32), (torch.bfloat16, copy_of(torch.bfloat16))):
+        name = _dtname(dtype)
+        hf = fan_heatmap_fn(net, size)
+        with torch.no_grad():
+            rec[f"{name}_forward_ms"] = cuda_ms(lambda: hf(both), iters=5, warmup=2)[0]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rec[f"{name}_forward_and_input_grad_ms"] = cuda_ms(
+            lambda: torch.autograd.grad(heat_map_loss(fake, render, hf), fake), iters=5, warmup=2)[0]
+        rec[f"{name}_max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        del net, hf
+    x = both[:FAN_FLOAT64_BATCH]
+    with torch.no_grad():
+        y32 = fan_heatmap_fn(fan32, size)(x)
+        y64 = fan_heatmap_fn(copy_of(torch.float64), size)(x.double())
+    # The G step (DS, D_edit, LPIPS, ArcFace) without and with the heatmap
+    # term, in turns: what the term adds where the iteration runs it.
+    steps, st, cfg = train.steps, trainer.state, trainer.config
+    inputs = [steps.prepare_batch(a, "cuda") for a in _train_inputs(FAN_BATCH, 13, ds_flag=True)]
+    runs = {False: [], True: []}
+    for apply_hmap in (False, True, True, False):
+        runs[apply_hmap].append(cuda_ms(lambda: steps.g_step_grads(
+            st, cfg, *inputs, True, True, False, apply_hmap=apply_hmap), iters=2, warmup=1)[0])
+    rec["g_step_ms"] = {"without_hmap": runs[False], "with_hmap": runs[True]}
+    del inputs
+    rec["float64_batch"] = FAN_FLOAT64_BATCH
+    rec["max_rel_diff_vs_float64"] = float((y32.double() - y64).abs().max() / y64.abs().max())
+    rec["max_abs_heatmap"] = float(y64.abs().max())
+    rec["bar"] = 1e-4
+    emit(rec)
+    times = [v for k, v in rec.items() if k.endswith("_ms") and k != "g_step_ms"]
+    times += rec["g_step_ms"]["without_hmap"] + rec["g_step_ms"]["with_hmap"]
+    require(all(math.isfinite(v) and v > 0 for v in times), f"FAN timing {rec}")
+    require(rec["max_rel_diff_vs_float64"] <= rec["bar"], f"FAN float32 vs float64: {rec}")
+    return rec
+
+
+def _numpy_batch(g, n, px, background=False):
+    """[n, px, px, 3] float32 numpy in [-1, 1]; a render's top quarter is
+    background (-1)."""
+    x = torch.rand(n, px, px, 3, generator=g) * 2 - 1
+    if background:
+        x[:, :px // 4] = -1.0
+    return x.numpy()
+
+
+def eval_phase(ops, trainer):
+    """``QuantEvalHook`` on a float32 trainer at 256 px with LPIPS, ArcFace,
+    a seeded random InceptionV3 and the trainer's FAN as the heatmap scorer:
+    one reconstruction batch of ``quant_eval_batch_size`` and one edit batch
+    of ``EDIT_PHOTOS`` photos x 4 renders, FID against real statistics of
+    mean 0 and identity covariance.  A timed pass with cuDNN's default
+    algorithms (launches: only the forward kernels K1, K3 and K4), after the
+    kernel path and the plain path under the deterministic ones: each score
+    within 1e-4 of the plain path's, relative (FID 1e-3: the square root of
+    a singular product), plus 1e-6.  Also the pass without FID (its host
+    ``sqrtm``), the EMA forward's img/s, InceptionV3's ms on the edit batch,
+    and a ``get_val_sample_grid`` grid from both paths, equal within 1 in
+    uint8."""
+    import numpy as np
+
+    from fm3dgan_torch.eval.visual_eval import get_val_sample_grid
+    from fm3dgan_torch.models.fan_landmark import fan_heatmap_landmark_fn
+    from fm3dgan_torch.models.inception import InceptionV3Pool3
+    from fm3dgan_torch.train.eval_hook import QuantEvalHook, ema_forward_fn
+
+    cfg, px = trainer.config, trainer.input_size
+    g = torch.Generator().manual_seed(41)
+    n_rec = cfg.quant_eval_batch_size
+    recon = [(_numpy_batch(g, n_rec, px), _numpy_batch(g, n_rec, px, background=True))]
+    edit = [[_numpy_batch(g, EDIT_PHOTOS, px)] + [_numpy_batch(g, EDIT_PHOTOS, px, background=True)
+                                                for _ in range(4)]]
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        inception = InceptionV3Pool3().requires_grad_(False).eval().cuda()
+    hook = QuantEvalHook(trainer, lambda: recon, lambda: edit, inception_fn=inception,
+                         real_stats=(np.zeros(2048), np.eye(2048)),
+                         heatmap_landmark_fn=fan_heatmap_landmark_fn(trainer.state.fan,
+                                                                     trainer.fan_input_size))
+    rec = dict(phase="eval", recon_images=n_rec, edit_images=4 * EDIT_PHOTOS, size=px)
+    torch.backends.cudnn.deterministic = True
+    try:
+        kernel = hook(0)  # also the warm-up of the timed pass
+        ops.reset_launches()
+        with ops.plain_versions():
+            plain = hook(0)
+            rec["plain_launches"] = ops.launch_counts()
+        val_sets = [_numpy_batch(g, 1, px) for _ in range(6)]
+        grid = get_val_sample_grid(ema_forward_fn(trainer), val_sets)
+        with ops.plain_versions():
+            grid_plain = get_val_sample_grid(ema_forward_fn(trainer), val_sets)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    rec["scores"] = hook(1)
+    torch.cuda.synchronize()
+    rec["pass_s"] = time.perf_counter() - t0
+    rec["launches"] = ops.launch_counts()
+    real_stats, hook.real_stats = hook.real_stats, None  # the same pass without FID
+    t0 = time.perf_counter()
+    hook(1)
+    torch.cuda.synchronize()
+    rec["pass_without_fid_s"] = time.perf_counter() - t0
+    hook.real_stats = real_stats
+    rec["kernel_scores"], rec["plain_scores"] = kernel, plain
+    rec["score_rel_diff"] = {k: abs(v - plain[k]) / max(abs(plain[k]), 1e-30)
+                             for k, v in kernel.items() if k != "eval_step"}
+    bars = {k: (1e-3 if k == "edit_fid" else 1e-4) for k in rec["score_rel_diff"]}
+    rec["grid_max_uint8_diff"] = int(np.abs(grid.astype(np.int16) - grid_plain).max())
+    fwd = ema_forward_fn(trainer)
+    photo, render = (torch.from_numpy(a).cuda() for a in recon[0])
+    with torch.no_grad():
+        ms = cuda_ms(lambda: fwd(photo, render), iters=3, warmup=1)[0]
+        rec["ema_forward_img_per_s"] = n_rec / ms * 1e3
+        x = torch.from_numpy(np.concatenate(edit[0][1:])).cuda().permute(0, 3, 1, 2)
+        rec["inception_ms"] = cuda_ms(lambda: inception(x), iters=3, warmup=1)[0]
+    emit(rec)
+    counts = rec["launches"]
+    require(all(math.isfinite(v) for k, v in rec["scores"].items()), f"eval scores {rec['scores']}")
+    require(all(counts[k] > 0 for k in ("blur", "upsample2x", "fused_leaky_relu"))
+            and counts["fused_leaky_relu_bwd"] == 0 and counts["downsample2x"] == 0,
+            f"eval pass launches {counts}")
+    require(not any(rec["plain_launches"].values()), f"plain eval launched {rec['plain_launches']}")
+    require(all(abs(kernel[k] - plain[k]) <= bars[k] * abs(plain[k]) + 1e-6 for k in bars),
+            f"eval scores, kernel vs plain path: {rec['score_rel_diff']}")
+    require(rec["grid_max_uint8_diff"] <= 1, f"grid kernel vs plain: {rec['grid_max_uint8_diff']}")
     return rec
 
 
@@ -818,36 +1067,65 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    def phase(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        emit(dict(phase_seconds=name, seconds=time.perf_counter() - t0))
+        return out
+
     emit(dict(phase="build", seconds=ops.build_all()))
-    records = kernel_phase(ops) + training_kernel_phase(ops)
-    path = path_phase(ops, pipeline)
+    records = phase("kernel", kernel_phase, ops) + phase("training_kernel", training_kernel_phase, ops)
+    path = phase("path", path_phase, ops, pipeline)
 
     # The shipped 3-encoder configuration, 256 px, full width, LPIPS and ArcFace.
     config = train.TrainConfig()
     trainer = train.Trainer(config, seed=0, device="cuda")
-    grads = gradient_phase(ops, train, trainer)
+    grads = phase("gradients", gradient_phase, ops, train, trainer)
     per_iteration = launches_per_iteration(records)
-    launches, ms = training_phase(ops, train, trainer, range(TRAIN_ITERS), "float32", per_iteration,
-                                  check_state=True)
-    loss_net_phase(trainer, [ms[i] for i in SHARED_ITERS])
+    launches, ms, _ = phase("train", training_phase, ops, train, trainer, range(TRAIN_ITERS),
+                            "float32", per_iteration, check_state=True)
+    phase("loss_nets", loss_net_phase, trainer, [ms[i] for i in SHARED_ITERS])
     del trainer
     torch.cuda.empty_cache()
     trainer = train.Trainer(dataclasses.replace(config, compute_dtype="bfloat16"), seed=0,
                             device="cuda")
-    training_phase(ops, train, trainer, range(BF16_ITERS), "bfloat16", per_iteration)
+    phase("train_bf16", training_phase, ops, train, trainer, range(BF16_ITERS), "bfloat16",
+          per_iteration)
     del trainer
     torch.cuda.empty_cache()
     # The shared iteration runs G forward once: one inference forward's
     # launches fewer than the unshared iteration.
     trainer = train.Trainer(dataclasses.replace(config, share_dg_noise=True), seed=0, device="cuda")
     per_shared = {k: v - EXPECTED_LAUNCHES[k] for k, v in per_iteration.items()}
-    _, shared_ms = training_phase(ops, train, trainer, SHARED_ITERS, "float32", per_shared)
+    _, shared_ms, _ = phase("shared", training_phase, ops, train, trainer, SHARED_ITERS, "float32",
+                            per_shared)
     emit(dict(phase="shared_vs_unshared", iterations=list(SHARED_ITERS),
               shared_ms=[shared_ms[i] for i in SHARED_ITERS], unshared_ms=[ms[i] for i in SHARED_ITERS],
               launches_per_iteration=per_shared))
     del trainer
     torch.cuda.empty_cache()
-    cli_phase(ops)
+
+    # The heatmap loss (FAN, 256 px input) from the first iteration on: FAN
+    # alone, two iterations, whose kernels launch as the unshared ones do
+    # (FAN runs none), the held G step, then the eval hook on this trainer.
+    trainer = train.Trainer(dataclasses.replace(config, **HMAP_CONFIG), seed=0, device="cuda")
+    phase("fan", fan_phase, train, trainer)
+    torch.cuda.empty_cache()
+    _, hmap_ms, hmap_losses = phase("hmap_train", training_phase, ops, train, trainer,
+                                    SHARED_ITERS, "float32", per_iteration)
+    emit(dict(phase="hmap_vs_unshared", iterations=list(SHARED_ITERS),
+              hmap_ms=[hmap_ms[i] for i in SHARED_ITERS], unshared_ms=[ms[i] for i in SHARED_ITERS],
+              hmap=[hmap_losses[i]["hmap"] for i in SHARED_ITERS],
+              launches_per_iteration=per_iteration))
+    require(all(math.isfinite(hmap_losses[i]["hmap"]) and hmap_losses[i]["hmap"] > 0
+                for i in SHARED_ITERS), f"heatmap loss {hmap_losses}")
+    torch.cuda.empty_cache()
+    phase("hmap_gradients", hmap_gradient_phase, ops, train, trainer)
+    torch.cuda.empty_cache()
+    phase("eval", eval_phase, ops, trainer)
+    del trainer
+    torch.cuda.empty_cache()
+    phase("cli", cli_phase, ops)
 
     result = summary(records, launches, path["launches"])
     if args.out:

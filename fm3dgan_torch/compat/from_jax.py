@@ -2,7 +2,9 @@
 
 The inverse of ``fm3dgan/compat/torch_port.py``'s ``convert_generator``,
 ``convert_discriminator``, ``convert_resnet18_encoder``,
-``convert_psp_encoder``, ``convert_arcface`` and ``convert_lpips``: the
+``convert_psp_encoder``, ``convert_arcface`` and ``convert_lpips``, and of
+``fm3dgan/models/fan_landmark.py``'s ``convert_fan`` and
+``fm3dgan/models/inception.py``'s ``convert_fid_inception``: the
 output uses the reference torch key names and layouts, so a reference torch
 checkpoint and a converted JAX tree load into the port alike.
 
@@ -223,6 +225,56 @@ def lpips_from_jax(v: Mapping[str, Any]) -> SD:
     return sd
 
 
+def _fan_block(sd: SD, dst: str, p: Mapping, s: Mapping) -> None:
+    for i in (1, 2, 3):
+        _bn(sd, f"{dst}.bn{i}", p[f"bn{i}"], s[f"bn{i}"])
+        sd[f"{dst}.conv{i}.weight"] = _conv(p[f"conv{i}"]["kernel"])
+    if "downsample_conv" in p:
+        _bn(sd, f"{dst}.downsample.0", p["downsample_bn"], s["downsample_bn"])
+        sd[f"{dst}.downsample.2.weight"] = _conv(p["downsample_conv"]["kernel"])
+
+
+def fan_from_jax(v: Mapping[str, Any]) -> SD:
+    """Inverse of ``convert_fan``: FAN in face-alignment's layout."""
+    params, stats = v["params"], v["batch_stats"]
+    sd: SD = {"conv1.weight": _conv(params["conv1"]["kernel"]),
+              "conv1.bias": _t(params["conv1"]["bias"])}
+    _bn(sd, "bn1", params["bn1"], stats["bn1"])
+    for name in ("conv2", "conv3", "conv4"):
+        _fan_block(sd, name, params[name], stats[name])
+    i = 0
+    while f"m{i}" in params:
+        for blk in params[f"m{i}"]:
+            _fan_block(sd, f"m{i}.{blk}", params[f"m{i}"][blk], stats[f"m{i}"][blk])
+        _fan_block(sd, f"top_m_{i}", params[f"top_m_{i}"], stats[f"top_m_{i}"])
+        sd[f"conv_last{i}.weight"] = _conv(params[f"conv_last{i}"]["kernel"])
+        _bn(sd, f"bn_end{i}", params[f"bn_end{i}"], stats[f"bn_end{i}"])
+        sd[f"l{i}.weight"] = _conv(params[f"l{i}"]["kernel"])
+        sd[f"l{i}.bias"] = _t(params[f"l{i}"]["bias"])
+        for name in (f"bl{i}", f"al{i}"):
+            if name in params:
+                sd[f"{name}.weight"] = _conv(params[name]["kernel"])
+        i += 1
+    return sd
+
+
+def inception_from_jax(v: Mapping[str, Any]) -> SD:
+    """Inverse of ``convert_fid_inception``: every BasicConv2d's
+    ``{path}.conv.weight`` and ``{path}.bn.*`` under torchvision's names."""
+    sd: SD = {}
+
+    def walk(p: Mapping, s: Mapping, path: str) -> None:
+        if "conv" in p and "bn" in p:
+            sd[f"{path}.conv.weight"] = _conv(p["conv"]["kernel"])
+            _bn(sd, f"{path}.bn", p["bn"], s["bn"])
+            return
+        for k in p:
+            walk(p[k], s[k], f"{path}.{k}" if path else k)
+
+    walk(v["params"], v["batch_stats"], "")
+    return sd
+
+
 _CONVERTERS = {
     "g": generator_from_jax,
     "d": discriminator_from_jax,
@@ -232,12 +284,15 @@ _CONVERTERS = {
     "e_w_plus": psp_from_jax,
     "lpips": lpips_from_jax,
     "arcface": arcface_from_jax,
+    "fan": fan_from_jax,
+    "inception": inception_from_jax,
 }
 
 
 def from_jax(variables_np: Mapping[str, Any]) -> Dict[str, SD]:
-    """{'g', 'e_tsr', 'e_w', 'e_w_plus', 'd', 'd_edit', 'lpips', 'arcface'}
-    flax variables (numpy leaves) -> state dicts of the same keys, for
-    ``FaceManipulator.load_variables``, ``Discriminator.load_state_dict`` and
-    the ``Trainer``'s ``frozen_state_dicts``."""
+    """{'g', 'e_tsr', 'e_w', 'e_w_plus', 'd', 'd_edit', 'lpips', 'arcface',
+    'fan', 'inception'} flax variables (numpy leaves) -> state dicts of the
+    same keys, for ``FaceManipulator.load_variables``,
+    ``Discriminator.load_state_dict``, the ``Trainer``'s
+    ``frozen_state_dicts`` and ``InceptionV3Pool3.load_state_dict``."""
     return {k: _CONVERTERS[k](v) for k, v in variables_np.items() if k in _CONVERTERS}

@@ -9,13 +9,28 @@ render_img/, ``--ds_data_dir`` and ``--ep_data_dir`` with id_*/g_K, r_K
 pairs) or from ``--fake_data``.  Writes ``exp_dir/training_log.jsonl``, one
 line per iteration (iter, time_s, load_s and the iteration's metrics), and
 ``exp_dir/ckpt/{iter:06d}.pt`` every ``model_save_freq`` iterations;
-``--resume_dir DIR --resume_step N`` continues after iteration N.  On
-SIGTERM or SIGINT it checkpoints the finished iteration and exits 0.  Its
-divergence guard stops a run whose |g| or |l1| is non-finite or above
-``--divergence_threshold`` somewhere in two consecutive flushed log windows:
-it writes ``{iter:06d}_diverged.pt``, a name resuming by step skips, and
-exits 3.  The JAX CLI's evaluation hook, sample grids and multi-host flags
-are not ported yet.
+``--resume_dir DIR --resume_step N`` continues after iteration N.
+
+Every ``val_sample_freq`` iterations it writes ``exp_dir/sample/{iter:06d}.png``,
+a grid of the EMA generator's edits of a fixed validation set (``.npy``
+bundles from ``--val_bundle_dir``, identities of ``--ds_data_dir``, or a
+seeded random set with ``--fake_data``).  Every ``model_save_freq``
+iterations, before the checkpoint, it scores the EMA generator on held-out
+batches (``--rec_eval_dir``, ``--edit_eval_dir``, or random ones with
+``--fake_data``) and appends ``{"eval": {...}}`` to the log: identity
+cosine, LPIPS and L1 of the reconstruction; identity cosine, FID (with
+``--fid_stats_path``; InceptionV3 from ``--inception_ckpt``, a pytorch-fid
+``.pth``, else random weights) and face-regional error of the edit, its
+heatmap and landmark errors NaN as in the JAX CLI.  ``--hmap_loss_lambda``
+above 0 adds the FAN heatmap loss past ``--hmap_iter_thres``, with FAN's
+input at ``--fan_input_size``.
+
+On SIGTERM or SIGINT it checkpoints the finished iteration, skips the grid
+and the scores, and exits 0.  Its divergence guard counts consecutive log
+lines whose |g| or |l1| is non-finite or above ``--divergence_threshold``
+(a healthy line resets the count); at ``2 * log_every`` of them it writes
+``{iter:06d}.pt`` and exits 3.  The JAX CLI's mesh and multi-host flags are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -58,12 +73,30 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="torch device (default cuda; cpu to run on the CPU)")
     p.add_argument("--input_size", type=int, default=None,
                    help="encoder input resolution (default: --size)")
+    p.add_argument("--fan_input_size", type=int, default=256,
+                   help="heatmap FAN input resolution (256 for the pretrained 2DFAN-4 "
+                        "weights; a multiple of 64)")
     p.add_argument("--fake_data", action="store_true")
     p.add_argument("--rec_data_dir", type=str, default=None,
                    help="dir with img/ and render_img/ subfolders")
     p.add_argument("--ds_data_dir", type=str, default=None,
                    help="synthetic id_XXXXX/{g,r}_K.png pair dir")
     p.add_argument("--ep_data_dir", type=str, default=None, help="extreme-pose pair dir")
+    p.add_argument("--rec_eval_dir", type=str, default=None,
+                   help="held-out reconstruction eval dir (img/ and render_img/)")
+    p.add_argument("--edit_eval_dir", type=str, default=None,
+                   help="held-out edit eval dir (img/ and edit_render_img/)")
+    p.add_argument("--fid_stats_path", type=str, default=None,
+                   help="real-image InceptionV3 statistics (a pickle of mean and cov) for "
+                        "the edit score's FID")
+    p.add_argument("--inception_ckpt", type=str, default=None,
+                   help="pytorch-fid InceptionV3 .pth for the FID (default: random weights)")
+    p.add_argument("--n_eval_batches", type=int, default=None,
+                   help="cap on the eval batches of each score")
+    p.add_argument("--val_bundle_dir", type=str, default=None,
+                   help="dir of .npy visual validation bundles")
+    p.add_argument("--n_real_eval_faces", type=int, default=2)
+    p.add_argument("--n_syn_eval_faces", type=int, default=2)
     p.add_argument("--n_data_workers", type=int, default=4)
     p.add_argument("--input_uint8", type=_bool, default=True,
                    help="load batches as uint8 and normalise on the device (a quarter of "
@@ -72,9 +105,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="keep decoded images in host memory: auto caps the cache at about "
                         "25%% of available memory, true is unbounded")
     p.add_argument("--divergence_threshold", type=float, default=1e6,
-                   help="stop (checkpoint {iter}_diverged, exit 3) when |g| or |l1| exceeds "
-                        "this, or is non-finite, in two consecutive flushed log windows; "
-                        "0 disables")
+                   help="stop (checkpoint, exit 3) after 2 * log_every consecutive log lines "
+                        "whose |g| or |l1| exceeds this or is non-finite; 0 disables")
     p.add_argument("--resume_dir", type=str, default=None)
     p.add_argument("--resume_step", type=int, default=None)
     p.add_argument("--log_every", type=int, default=10,
@@ -142,6 +174,14 @@ def _diverged(line, threshold: float) -> bool:
     return threshold > 0 and any(not math.isfinite(v) or abs(v) > threshold for v in vals)
 
 
+def count_diverged(count: int, lines, threshold: float) -> int:
+    """The count of consecutive diverged log lines after ``lines``: each
+    diverged line adds one, a healthy line resets it to 0."""
+    for line in lines:
+        count = count + 1 if _diverged(line, threshold) else 0
+    return count
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_arg_parser().parse_args(argv)
     cfg = config_from_args(args)
@@ -151,13 +191,18 @@ def main(argv: Optional[List[str]] = None) -> int:
     from fm3dgan_torch.train.preempt import GracefulShutdown
 
     ckpt_dir = os.path.join(args.exp_dir, "ckpt")
+    sample_dir = os.path.join(args.exp_dir, "sample")
     os.makedirs(ckpt_dir, exist_ok=True)
-    trainer = Trainer(cfg, seed=args.seed, device=args.device, input_size=args.input_size)
+    os.makedirs(sample_dir, exist_ok=True)
+    trainer = Trainer(cfg, seed=args.seed, device=args.device, input_size=args.input_size,
+                      fan_input_size=args.fan_input_size)
     start_iter = 0
     if args.resume_dir:
         trainer.load_checkpoint(args.resume_dir, args.resume_step)
         start_iter = args.resume_step + 1
     rec, ds, ep = make_loaders(args, cfg)
+    eval_hook = _make_eval_hook(args, cfg, trainer)
+    val_sets = _make_val_sets(args, cfg)
 
     def load_batch(i):
         g_input, r_input, g_ref = data_loading(rec, ds, cfg.is_ds_iter(i), extreme_loader=ep or ds,
@@ -183,15 +228,17 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     stopper = GracefulShutdown()
     try:
-        return _train(args, cfg, trainer, start_iter, load_batch, ckpt_dir, stopper)
+        return _train(args, cfg, trainer, start_iter, load_batch, ckpt_dir, sample_dir,
+                      eval_hook, val_sets, stopper)
     finally:
         stopper.restore()
 
 
-def _train(args, cfg, trainer, start_iter, load_batch, ckpt_dir, stopper) -> int:
+def _train(args, cfg, trainer, start_iter, load_batch, ckpt_dir, sample_dir, eval_hook,
+           val_sets, stopper) -> int:
     log_path = os.path.join(args.exp_dir, "training_log.jsonl")
     pending: list = []
-    diverged_windows = 0
+    diverged_lines = 0
     # Double-buffered input: batch i is on the device (or on its way) when
     # iteration i is enqueued; batch i + 1's copy starts right after.
     staged = trainer.stage_batch(*load_batch(start_iter))
@@ -199,9 +246,10 @@ def _train(args, cfg, trainer, start_iter, load_batch, ckpt_dir, stopper) -> int
         for i in range(start_iter, cfg.training_iters):
             t0 = time.time()
             ds_flag, ep_flag = cfg.is_ds_iter(i), cfg.is_extreme_ds_iter(i)
-            metrics = trainer.train_iteration(i, *staged)
-            # One snapshot per iteration: after a signal, skip the next batch
-            # and go straight to the final checkpoint.
+            batch = staged
+            metrics = trainer.train_iteration(i, *batch)
+            # One snapshot per iteration: after a signal, skip the next batch,
+            # the grid and the scores, and go straight to the final checkpoint.
             preempt_now = stopper.requested
             load_s = 0.0
             if not preempt_now and i + 1 < cfg.training_iters:
@@ -211,10 +259,11 @@ def _train(args, cfg, trainer, start_iter, load_batch, ckpt_dir, stopper) -> int
             # Host time of the iteration (the device may still be running it).
             dt = time.time() - t0
             pending.append((i, dt, load_s, ds_flag, ep_flag, metrics))
+            sample_due = i % cfg.val_sample_freq == 0 and i > 0
+            save_due = i % cfg.model_save_freq == 0 and i > 0
             if (len(pending) >= max(1, args.log_every) or i == cfg.training_iters - 1
-                    or (i % cfg.val_sample_freq == 0 and i > 0)
-                    or (i % cfg.model_save_freq == 0 and i > 0) or preempt_now):
-                window_diverged = False
+                    or sample_due or save_due or preempt_now):
+                lines = []
                 for j, jdt, jload, jds, jep, m in pending:
                     line = {"iter": j, "time_s": round(jdt, 3), "load_s": round(jload, 3),
                             **{k: (float(v) if hasattr(v, "item") else v) for k, v in m.items()}}
@@ -223,27 +272,129 @@ def _train(args, cfg, trainer, start_iter, load_batch, ckpt_dir, stopper) -> int
                           f"l1={line.get('l1', 0):.4f} r1={line.get('r1', 0):.4f} "
                           f"ppl={line.get('g_reg', 0):.4f} ({jdt:.2f}s)"
                           + (" [DS]" if jds else "") + (" [EP]" if jep else ""), flush=True)
-                    window_diverged |= _diverged(line, args.divergence_threshold)
+                    lines.append(line)
                 logf.flush()
                 pending.clear()
-                diverged_windows = diverged_windows + 1 if window_diverged else 0
-                if diverged_windows >= 2:
+                diverged_lines = count_diverged(diverged_lines, lines, args.divergence_threshold)
+                if diverged_lines >= 2 * max(1, args.log_every):
                     print(f"[{i}] DIVERGENCE: |g| or |l1| beyond {args.divergence_threshold:g} "
-                          f"(or non-finite) in 2 consecutive log windows: checkpoint "
-                          f"{i:06d}_diverged and exit 3.  Resume from an earlier checkpoint "
+                          f"(or non-finite) in {diverged_lines} consecutive log lines: checkpoint "
+                          f"{i:06d} and exit 3.  Resume from an earlier checkpoint "
                           f"(--resume_dir {ckpt_dir} --resume_step <last good>), typically "
                           f"with a lower --lr.", flush=True)
                     logf.write(json.dumps({"diverged": i,
                                            "threshold": args.divergence_threshold}) + "\n")
                     logf.flush()
-                    trainer.save_checkpoint(ckpt_dir, i, tag="_diverged")
+                    trainer.save_checkpoint(ckpt_dir, i)
                     return 3
-            if i % cfg.model_save_freq == 0 and i > 0 and not preempt_now:
+            if sample_due and not preempt_now:
+                if val_sets is not None:
+                    _save_val_set_grid(trainer, val_sets, sample_dir, i)
+                else:
+                    _save_sample_grid(trainer, batch[0], batch[1], sample_dir, i)
+            if save_due and not preempt_now:
+                if eval_hook is not None:
+                    scores = eval_hook(i)
+                    logf.write(json.dumps({"eval": scores}) + "\n")
+                    logf.flush()
+                    printable = {k: round(v, 4) for k, v in scores.items()
+                                 if isinstance(v, float) and math.isfinite(v)}
+                    print(f"[{i}] quant eval: {printable}", flush=True)
                 trainer.save_checkpoint(ckpt_dir, i)
             if preempt_now:
                 stopper.checkpoint_and_exit(trainer, ckpt_dir, i, logf)
                 break
     return 0
+
+
+def _make_eval_hook(args, cfg, trainer):
+    """The quantitative-eval hook of the run, or None without eval data."""
+    from fm3dgan_torch.train.eval_hook import (
+        QuantEvalHook,
+        make_dir_eval_batches,
+        make_fake_eval_batches,
+    )
+
+    size = args.input_size or cfg.size
+    if args.rec_eval_dir or args.edit_eval_dir:
+        from fm3dgan_torch.data.datasets import default_transform
+
+        rec_fn, edit_fn = make_dir_eval_batches(args.rec_eval_dir, args.edit_eval_dir,
+                                                cfg.quant_eval_batch_size,
+                                                n_batches=args.n_eval_batches,
+                                                transform=default_transform(size))
+    elif args.fake_data:
+        rec_fn, edit_fn = make_fake_eval_batches(size, batch=2, n_batches=args.n_eval_batches or 1)
+    else:
+        return None
+
+    inception_fn = real_stats = None
+    if args.fid_stats_path:
+        import torch
+
+        from fm3dgan_torch.eval.fid import load_stats
+        from fm3dgan_torch.models.inception import InceptionV3Pool3, fid_inception_state_dict
+
+        real_stats = load_stats(args.fid_stats_path)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            inception = InceptionV3Pool3()
+        if args.inception_ckpt:
+            sd = torch.load(args.inception_ckpt, map_location="cpu", weights_only=True)
+            inception.load_state_dict(fid_inception_state_dict(sd, inception))
+        else:
+            print("WARNING: random-init inception features for in-loop FID", flush=True)
+        inception_fn = inception.requires_grad_(False).eval().to(trainer.device)
+
+    return QuantEvalHook(trainer, rec_batches=rec_fn, edit_batches=edit_fn,
+                         inception_fn=inception_fn, real_stats=real_stats)
+
+
+def _make_val_sets(args, cfg):
+    """The fixed visual validation set: .npy bundles and/or synthetic
+    identities, or a seeded random set for --fake_data; None if none."""
+    import glob
+
+    size = args.input_size or cfg.size
+    rng = np.random.RandomState(args.seed + 77)
+    sets = []
+    if args.val_bundle_dir:
+        from fm3dgan_torch.eval.visual_eval import get_real_img_val_sample
+
+        paths = sorted(glob.glob(os.path.join(args.val_bundle_dir, "*.npy")))
+        sets += get_real_img_val_sample(paths, args.n_real_eval_faces, size=size, rng=rng)
+    if args.ds_data_dir and not args.fake_data:
+        from fm3dgan_torch.data import SyntheticPairDataset
+        from fm3dgan_torch.data.datasets import default_transform
+        from fm3dgan_torch.eval.visual_eval import get_syn_img_val_sample
+
+        ds_set = SyntheticPairDataset(args.ds_data_dir, transform=default_transform(size))
+        sets += get_syn_img_val_sample(ds_set, args.n_syn_eval_faces,
+                                       n_img_per_id=ds_set.n_img_per_id, rng=rng)
+    if not sets and args.fake_data:
+        sets = [rng.uniform(-1, 1, (1, size, size, 3)).astype(np.float32) for _ in range(6)]
+    return sets or None
+
+
+def _save_val_set_grid(trainer, val_sets, sample_dir, step):
+    from fm3dgan_torch.eval.visual_eval import get_val_sample_grid, grid_to_image, save_image
+    from fm3dgan_torch.train.eval_hook import ema_forward_fn
+
+    grid = get_val_sample_grid(ema_forward_fn(trainer), val_sets)
+    save_image(os.path.join(sample_dir, f"{step:06d}.png"), grid_to_image(grid))
+
+
+def _save_sample_grid(trainer, photos, renders, sample_dir, step, n=4):
+    """Photo x render editing grid of the training batch, from g_ema."""
+    from fm3dgan_torch.eval.visual_eval import get_batch_eval_result, grid_to_image, save_image
+    from fm3dgan_torch.train.eval_hook import ema_forward_fn
+    from fm3dgan_torch.train.steps import prepare_batch
+
+    # NHWC float in [-1, 1] on the host (the batch may be uint8, on the device).
+    photos, renders = (prepare_batch(a[:n], "cpu").permute(0, 2, 3, 1).numpy()
+                       for a in (photos, renders))
+    grid = get_batch_eval_result(ema_forward_fn(trainer), photos, renders)
+    save_image(os.path.join(sample_dir, f"{step:06d}.png"), grid_to_image(grid))
 
 
 if __name__ == "__main__":

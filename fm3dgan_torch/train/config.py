@@ -4,10 +4,8 @@ Counterpart of ``fm3dgan/train/config.py``: every field of the JAX
 configuration with its shipped 3-encoder value and type, but the JAX
 package's TPU dispatch and memory knobs (``fuse_*``, ``remat_*``,
 ``data_axis``), which have no counterpart in eager PyTorch on one card.
-``w_encode``, ``w_plus_encode``, ``hmap_iter_thres`` and
-``quant_eval_batch_size`` are parsed and stored, as the JAX CLI does, and
-read by no ported code yet (the FAN heatmap loss and the evaluation hook
-are later slices).
+``w_encode`` and ``w_plus_encode`` are parsed and stored, as the JAX CLI
+does, and read by no code of either package.
 """
 
 from __future__ import annotations
@@ -59,7 +57,7 @@ class TrainConfig:
     r1: float = 10.0
     d_reg_every: int = 16
 
-    # Loss weights; the FAN heatmap term is refused above 0 by the Trainer.
+    # Loss weights; the FAN heatmap term fires after hmap_iter_thres.
     lpips_loss_lambda: float = 3.0
     l1_loss_lambda: float = 3.0
     ep_lpips_l1_weight_shrink: float = 10.0

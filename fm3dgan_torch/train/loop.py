@@ -11,8 +11,10 @@ the counterpart of ``_iter_keys``, so a resumed run draws the same noise.
 
 Random initial weights come from seeds derived from ``seed`` in the JAX
 split order: the models ``seed``, D ``seed + 1``, D_edit ``seed + 2``,
-LPIPS ``seed + 3``, ArcFace ``seed + 4``.  The frozen loss networks run in
-the training compute dtype, as in the JAX trainer.
+LPIPS ``seed + 3``, ArcFace ``seed + 4``, FAN ``seed + 5``.  The frozen loss
+networks run in the training compute dtype, as in the JAX trainer.  FAN is
+built when the heatmap loss can fire (``hmap_loss_lambda > 0``) and the
+term fires from the first iteration past ``hmap_iter_thres``.
 
 A checkpoint is ``{step:06d}.pt`` (the reference-layout state dicts of G,
 the encoders, both discriminators and g_ema with their BatchNorm buffers,
@@ -32,6 +34,7 @@ import torch
 
 from fm3dgan_torch.models.arcface import ResNetFace18
 from fm3dgan_torch.models.discriminator import Discriminator
+from fm3dgan_torch.models.fan_landmark import FAN
 from fm3dgan_torch.models.lpips import LPIPS
 from fm3dgan_torch.pipeline.forward import FaceManipulator, resolve_device
 from fm3dgan_torch.train import steps
@@ -46,7 +49,10 @@ class Trainer:
     """Builds the models, the frozen loss networks and the train state, and
     runs iterations on ``device`` (``cuda`` unless the caller passes
     another).  ``frozen_state_dicts`` may hold reference-layout state dicts
-    for ``lpips`` and ``arcface``, which replace their random weights."""
+    for ``lpips``, ``arcface`` and ``fan``, which replace their random
+    weights.  ``use_fan`` None builds FAN when ``hmap_loss_lambda > 0``;
+    it takes its input at ``fan_input_size`` (256 for the pretrained
+    2DFAN-4; a multiple of 64 px)."""
 
     def __init__(
         self,
@@ -54,19 +60,22 @@ class Trainer:
         seed: int = 0,
         use_lpips: bool = True,
         use_arcface: bool = True,
+        use_fan: Optional[bool] = None,
+        fan_input_size: int = 256,
         device=None,
         input_size: Optional[int] = None,
         frozen_state_dicts: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
     ):
-        if config.hmap_loss_lambda > 0:
-            raise NotImplementedError(
-                "hmap_loss_lambda > 0 needs the FAN heatmap network, which is not ported "
-                "yet (ROADMAP.md: the evaluation slice); set it to 0")
         self.config = config
         self.device = resolve_device(device)
         self.input_size = input_size or config.size
+        self.fan_input_size = fan_input_size
         self._seed = seed
         self._use_lpips, self._use_arcface = use_lpips, use_arcface
+        self._use_fan = config.hmap_loss_lambda > 0 if use_fan is None else use_fan
+        if self._use_fan and (fan_input_size < 64 or fan_input_size % 64):
+            # The stem and the depth-4 hourglass halve the input six times.
+            raise ValueError(f"fan_input_size {fan_input_size} must be a multiple of 64 px")
         self._frozen_state_dicts = frozen_state_dicts or {}
         self.state = self._create_state(DTYPES[config.compute_dtype], seed)
         # Host RNG for the PPL subset choice, drawn at every PPL iteration.
@@ -99,12 +108,15 @@ class Trainer:
                 # ArcFace sees the generated image grayscale and 2x pooled.
                 torch.manual_seed(seed + 4)
                 frozen["arcface"] = ResNetFace18(input_size=config.size // 2, dtype=dtype)
+            if self._use_fan:
+                torch.manual_seed(seed + 5)
+                frozen["fan"] = FAN(dtype=dtype)
         for name, net in frozen.items():
             if name in self._frozen_state_dicts:
                 net.load_state_dict(self._frozen_state_dicts[name])
             frozen[name] = net.requires_grad_(False).eval().to(self.device)
         return TrainState.create(config, models, d.to(self.device), d_edit.to(self.device),
-                                 **frozen)
+                                 fan_input_size=self.fan_input_size, **frozen)
 
     def float64_state(self) -> TrainState:
         """A state whose models, discriminators and loss networks hold this
@@ -116,14 +128,15 @@ class Trainer:
         ref = self._create_state(torch.float64, self._seed)
         st = self.state
         for dst, src in ((ref.models, st.models), (ref.d, st.d), (ref.d_edit, st.d_edit),
-                         (ref.lpips, st.lpips), (ref.arcface, st.arcface)):
+                         (ref.lpips, st.lpips), (ref.arcface, st.arcface), (ref.fan, st.fan)):
             if dst is not None:
                 dst.load_state_dict(src.state_dict())
         return ref
 
     def schedule(self, iter_idx: int, batch: int) -> Dict[str, Any]:
-        """The iteration's branch flags and PPL subset (consumes the host RNG
-        at PPL iterations, as the JAX trainer does)."""
+        """The iteration's branch flags, whether the heatmap term fires, and
+        the PPL subset (consumes the host RNG at PPL iterations, as the JAX
+        trainer does)."""
         cfg = self.config
         ds_flag = cfg.is_ds_iter(iter_idx)
         will_g_reg = cfg.use_g_reg and iter_idx % cfg.g_reg_every == 0
@@ -138,6 +151,8 @@ class Trainer:
             use_edit=bool(ds_flag and cfg.use_separate_d),
             do_r1=iter_idx % cfg.d_reg_every == 0,
             will_g_reg=will_g_reg,
+            apply_hmap=bool(self.state.fan is not None and cfg.hmap_loss_lambda > 0
+                            and iter_idx > cfg.hmap_iter_thres),
             ppl_idx=idx,
         )
 
@@ -182,7 +197,7 @@ class Trainer:
         if cfg.share_dg_noise:
             metrics.update(steps.shared_iteration(
                 state, cfg, photo, render, ref, s["use_edit"], s["ds_flag"], s["extreme"],
-                s["do_r1"], d_gen, apply_ema=not s["will_g_reg"],
+                s["do_r1"], d_gen, apply_ema=not s["will_g_reg"], apply_hmap=s["apply_hmap"],
             ))
             if s["do_r1"]:
                 self._last_r1 = metrics["r1"]
@@ -192,7 +207,7 @@ class Trainer:
                 self._last_r1 = steps.d_reg_step(state, cfg, ref, s["use_edit"])["r1"]
             metrics.update(steps.g_step(
                 state, cfg, photo, render, ref, s["use_edit"], s["ds_flag"], s["extreme"], g_gen,
-                apply_ema=not s["will_g_reg"],
+                apply_ema=not s["will_g_reg"], apply_hmap=s["apply_hmap"],
             ))
         if s["will_g_reg"]:
             idx = torch.as_tensor(s["ppl_idx"], device=self.device)
@@ -213,8 +228,8 @@ class Trainer:
                 "g_ema": st.g_ema}
         return {k: m for k, m in mods.items() if m is not None}
 
-    def save_checkpoint(self, ckpt_dir: str, step: int, tag: str = "") -> str:
-        """Write ``{step:06d}{tag}.pt`` and its ``.json`` meta file into
+    def save_checkpoint(self, ckpt_dir: str, step: int) -> str:
+        """Write ``{step:06d}.pt`` and its ``.json`` meta file into
         ``ckpt_dir``; returns the checkpoint's path.  The file appears whole
         or not at all (written aside, then renamed)."""
         st = self.state
@@ -224,7 +239,7 @@ class Trainer:
         ckpt["step"] = st.step
         ckpt["mean_path_length"] = st.mean_path_length
         os.makedirs(ckpt_dir, exist_ok=True)
-        path = os.path.join(ckpt_dir, f"{step:06d}{tag}.pt")
+        path = os.path.join(ckpt_dir, f"{step:06d}.pt")
         torch.save(ckpt, path + ".tmp")
         os.replace(path + ".tmp", path)
         meta = {
@@ -235,7 +250,7 @@ class Trainer:
             "size": self.config.size,
             "input_size": self.input_size,
         }
-        with open(os.path.join(ckpt_dir, f"{step:06d}{tag}.json"), "w") as f:
+        with open(os.path.join(ckpt_dir, f"{step:06d}.json"), "w") as f:
             json.dump(meta, f)
         return path
 

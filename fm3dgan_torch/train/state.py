@@ -57,8 +57,9 @@ def make_d_optimizer(config: TrainConfig, d: Discriminator) -> torch.optim.Adam:
 @dataclasses.dataclass
 class TrainState:
     """Everything a training iteration reads and updates (in place).
-    ``lpips`` and ``arcface`` are the frozen loss networks (eval mode, no
-    gradient of their own), None where the G step goes without the term."""
+    ``lpips``, ``arcface`` and ``fan`` are the frozen loss networks (eval
+    mode, no gradient of their own), None where the G step goes without the
+    term; FAN sees its inputs at ``fan_input_size``."""
 
     models: FaceManipulator
     d: Discriminator
@@ -71,11 +72,14 @@ class TrainState:
     step: int = 0
     lpips: Optional[nn.Module] = None
     arcface: Optional[nn.Module] = None
+    fan: Optional[nn.Module] = None
+    fan_input_size: int = 256
 
     @classmethod
     def create(cls, config: TrainConfig, models: FaceManipulator, d: Discriminator,
                d_edit: Optional[Discriminator], lpips: Optional[nn.Module] = None,
-               arcface: Optional[nn.Module] = None) -> "TrainState":
+               arcface: Optional[nn.Module] = None, fan: Optional[nn.Module] = None,
+               fan_input_size: int = 256) -> "TrainState":
         g_ema = copy.deepcopy(models.generator)
         g_ema.requires_grad_(False)
         return cls(
@@ -89,4 +93,6 @@ class TrainState:
             mean_path_length=torch.zeros((), device=models.device),
             lpips=lpips,
             arcface=arcface,
+            fan=fan,
+            fan_input_size=fan_input_size,
         )

@@ -6,8 +6,8 @@ reference cadence,
 
   d_step      GAN logistic loss on the active D (D, or D_edit on DS steps)
   d_reg_step  lazy R1, weighted r1/2 * R1 * d_reg_every
-  g_step      GAN + LPIPS + L1 + face-ID (+ face-regional) on G and the
-              trained encoders
+  g_step      GAN + LPIPS + L1 + face-ID (+ heatmap, + face-regional) on G
+              and the trained encoders
   g_reg_step  lazy PPL, weighted path_reg_weight * g_reg_every * penalty
 
 plus the g_ema update, and ``shared_iteration``, the ``share_dg_noise``
@@ -30,9 +30,10 @@ import torch
 import torch.nn as nn
 
 from fm3dgan_torch.losses.gan import d_logistic_loss, d_r1_penalty, g_nonsaturating_loss
-from fm3dgan_torch.losses.geometry import face_regional_loss
+from fm3dgan_torch.losses.geometry import face_regional_loss, heat_map_loss
 from fm3dgan_torch.losses.path_reg import path_regularize
 from fm3dgan_torch.losses.recon import face_identity_loss, l1_loss
+from fm3dgan_torch.models.fan_landmark import fan_heatmap_fn
 from fm3dgan_torch.pipeline.forward import FaceManipulator, _combine_w_wplus
 from fm3dgan_torch.train.config import TrainConfig
 from fm3dgan_torch.train.state import TrainState, g_enc_modules, named_params
@@ -152,12 +153,15 @@ def d_reg_step(state, config, ref, use_edit) -> Dict:
 
 def g_downstream_losses(fake, d, photo, render, ref, config: TrainConfig, ds_flag: bool,
                         extreme_ds_flag: bool, lpips: Optional[nn.Module] = None,
-                        arcface: Optional[nn.Module] = None):
-    """GAN + LPIPS + L1 + face-ID + face-regional losses with the lambda
-    schedule of the JAX ``_g_downstream_losses``: LPIPS and L1 shrink on
-    extreme-DS iterations, where identity is held against the input photo
+                        arcface: Optional[nn.Module] = None, fan: Optional[nn.Module] = None,
+                        fan_input_size: int = 256, apply_hmap: bool = False):
+    """GAN + LPIPS + L1 + face-ID + heatmap + face-regional losses with the
+    lambda schedule of the JAX ``_g_downstream_losses``: LPIPS and L1 shrink
+    on extreme-DS iterations, where identity is held against the input photo
     instead of the reference.  A term whose network is None (or whose weight
-    is 0) is 0.  ``hmap`` is always 0: the Trainer refuses the heatmap loss."""
+    is 0) is 0; the heatmap term also needs ``apply_hmap`` (the caller's
+    ``iter > hmap_iter_thres``).  The render's heatmaps carry no graph:
+    nothing in that branch requires a gradient."""
     shrink = config.ep_lpips_l1_weight_shrink if extreme_ds_flag else 1.0
     lpips_l = config.lpips_loss_lambda / shrink
     if not ds_flag:
@@ -181,26 +185,32 @@ def g_downstream_losses(fake, d, photo, render, ref, config: TrainConfig, ds_fla
             id_ref = id_ref.reshape(n, c, h, f, w, f).mean(dim=(3, 5))
         face_id = config.face_id_loss_lambda * face_identity_loss(
             fake, id_ref, arcface, config.face_id_loss_type)
+    hmap = zero
+    if apply_hmap and fan is not None and config.hmap_loss_lambda > 0:
+        hmap = config.hmap_loss_lambda * heat_map_loss(fake, render,
+                                                       fan_heatmap_fn(fan, fan_input_size))
     face_reg = face_reg_l * face_regional_loss(render, fake) if face_reg_l > 0 else zero
-    total = g_loss + lpips_term + l1 + face_id + face_reg
-    metrics = {"g": g_loss, "lpips": lpips_term, "l1": l1, "face_id": face_id, "hmap": zero,
+    total = g_loss + lpips_term + l1 + face_id + hmap + face_reg
+    metrics = {"g": g_loss, "lpips": lpips_term, "l1": l1, "face_id": face_id, "hmap": hmap,
                "face_reg": face_reg}
     return total, {k: v.detach() for k, v in metrics.items()}
 
 
 def g_step_grads(state: TrainState, config: TrainConfig, photo, render, ref, use_edit: bool,
                  ds_flag: bool, extreme_ds_flag: bool,
-                 noise_generator: Optional[torch.Generator] = None) -> Tuple[Grads, Dict]:
+                 noise_generator: Optional[torch.Generator] = None,
+                 apply_hmap: bool = False) -> Tuple[Grads, Dict]:
     fake = forward_full(state.models, photo, render, config, noise_generator, train=True)
     return _g_grads_from_fake(state, config, fake, photo, render, ref, use_edit, ds_flag,
-                              extreme_ds_flag)
+                              extreme_ds_flag, apply_hmap)
 
 
 def _g_grads_from_fake(state, config, fake, photo, render, ref, use_edit, ds_flag,
-                       extreme_ds_flag) -> Tuple[Grads, Dict]:
+                       extreme_ds_flag, apply_hmap) -> Tuple[Grads, Dict]:
     d, _ = _active_d(state, use_edit)
     total, metrics = g_downstream_losses(fake, d, photo, render, ref, config, ds_flag,
-                                         extreme_ds_flag, state.lpips, state.arcface)
+                                         extreme_ds_flag, state.lpips, state.arcface, state.fan,
+                                         state.fan_input_size, apply_hmap)
     return _grads_by_name(named_params(g_enc_modules(state.models, config)), total), metrics
 
 
@@ -212,9 +222,9 @@ def _apply_g(state: TrainState, config: TrainConfig, grads: Grads, apply_ema: bo
 
 
 def g_step(state, config, photo, render, ref, use_edit, ds_flag, extreme_ds_flag,
-           noise_generator=None, apply_ema: bool = False) -> Dict:
+           noise_generator=None, apply_ema: bool = False, apply_hmap: bool = False) -> Dict:
     grads, metrics = g_step_grads(state, config, photo, render, ref, use_edit, ds_flag,
-                                  extreme_ds_flag, noise_generator)
+                                  extreme_ds_flag, noise_generator, apply_hmap)
     _apply_g(state, config, grads, apply_ema)
     return metrics
 
@@ -225,7 +235,7 @@ def g_step(state, config, photo, render, ref, use_edit, ds_flag, extreme_ds_flag
 def shared_iteration(state: TrainState, config: TrainConfig, photo, render, ref,
                      use_edit: bool, ds_flag: bool, extreme_ds_flag: bool, do_r1: bool,
                      noise_generator: Optional[torch.Generator] = None,
-                     apply_ema: bool = False) -> Dict:
+                     apply_ema: bool = False, apply_hmap: bool = False) -> Dict:
     """One encode + generate under autograd (the encoders' running
     statistics take one update), the D step on its detached output, R1 when
     due, then the G loss on the updated D over the same image, backward
@@ -237,7 +247,7 @@ def shared_iteration(state: TrainState, config: TrainConfig, photo, render, ref,
     if do_r1:
         metrics.update(d_reg_step(state, config, ref, use_edit))
     grads, g_metrics = _g_grads_from_fake(state, config, fake, photo, render, ref, use_edit,
-                                          ds_flag, extreme_ds_flag)
+                                          ds_flag, extreme_ds_flag, apply_hmap)
     _apply_g(state, config, grads, apply_ema)
     metrics.update(g_metrics)
     return metrics

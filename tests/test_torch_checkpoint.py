@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from fm3dgan_torch.models import LPIPS, ResNetFace18
+from fm3dgan_torch.models import FAN, LPIPS, ResNetFace18
 from fm3dgan_torch.models.generator import Generator
 from fm3dgan_torch.train import TrainConfig, Trainer
 from fm3dgan_torch.train.loop import OPTIMIZERS
@@ -62,8 +62,23 @@ def test_trainer_loads_reference_layout_loss_network_weights():
 
 
 def test_trainer_refuses_the_heatmap_loss():
-    with pytest.raises(NotImplementedError, match="FAN"):
-        Trainer(TrainConfig(**{**CFG, "hmap_loss_lambda": 1.0}), device="cpu", input_size=128)
+    """Where FAN cannot take its input (the stem and the hourglass halve it
+    six times), the Trainer refuses the heatmap loss; at 64 px it builds FAN
+    from seed + 5, or from ``frozen_state_dicts["fan"]``."""
+    cfg = TrainConfig(**{**CFG, "hmap_loss_lambda": 1.0})
+    for size in (32, 96):
+        with pytest.raises(ValueError, match="multiple of 64"):
+            Trainer(cfg, device="cpu", input_size=128, fan_input_size=size)
+    kw = dict(device="cpu", input_size=128, fan_input_size=64, use_lpips=False, use_arcface=False)
+    fan = Trainer(cfg, seed=2, **kw).state.fan
+    torch.manual_seed(7)
+    sd = FAN().state_dict()
+    loaded = Trainer(cfg, seed=2, frozen_state_dicts={"fan": sd}, **kw).state.fan
+    torch.manual_seed(2 + 5)
+    for n, v in FAN().state_dict().items():
+        torch.testing.assert_close(fan.state_dict()[n], v, rtol=0, atol=0, msg=n)
+        torch.testing.assert_close(loaded.state_dict()[n], sd[n], rtol=0, atol=0, msg=n)
+    assert not any(p.requires_grad for p in fan.parameters()) and not fan.training
 
 
 def test_checkpoint_round_trips_bit_exactly_and_resumes(tmp_path):

@@ -8,6 +8,8 @@ not installed:
 Without a CUDA device every test skips (decided in the fixture).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -610,3 +612,105 @@ def test_noise_weight_gradients_cancel_at_256px(cuda_device):
         print(f"{name}: kappa {abs_terms / abs(e):.0f}, float32 error {err:.2e}, "
               f"reduced in float64 {err_f64sum:.2e}")
         assert abs(err_f64sum - err) <= 0.1 * err + 1e-6, name
+
+
+@pytest.mark.gpu
+def test_fan_and_inception_on_card_match_float64(cuda_device):
+    """FAN (64 px input) and InceptionV3 (75 px as is, and 128 px resized to
+    299) on the card in float32 against float64 runs of the same seeded
+    weights on the card: within 1e-4 of the largest float64 value, the
+    module bar."""
+    from fm3dgan_torch.models.fan_landmark import FAN
+    from fm3dgan_torch.models.inception import InceptionV3Pool3
+
+    gen = torch.Generator().manual_seed(12)
+    for make, shapes in ((FAN, ((2, 3, 64, 64),)),
+                         (InceptionV3Pool3, ((2, 3, 75, 75), (2, 3, 128, 128)))):
+        torch.manual_seed(13)
+        net32 = make().requires_grad_(False).eval()
+        net64 = make(dtype=torch.float64).requires_grad_(False).eval()
+        net64.load_state_dict(net32.state_dict())
+        net32, net64 = net32.to(cuda_device), net64.to(cuda_device)
+        for shape in shapes:
+            if make is InceptionV3Pool3:
+                net32.resize_input = net64.resize_input = shape[-1] != 75
+            x = (torch.rand(*shape, generator=gen) * 2 - 1).to(cuda_device)
+            with torch.no_grad():
+                y32, y64 = net32(x), net64(x.double())
+            rel = float((y32.double() - y64).abs().max() / y64.abs().max())
+            print(f"{make.__name__} {shape}: float32 vs float64 {rel:.3e}")
+            assert rel <= 1e-4, (make.__name__, shape, rel)
+
+
+HMAP_TINY = dataclasses.replace(TINY_TRAIN, hmap_loss_lambda=1.0, hmap_iter_thres=0,
+                                quant_eval_batch_size=4)
+
+
+@pytest.mark.gpu
+def test_small_g_step_with_heatmap_term_on_card_matches_cpu(cuda_device):
+    """The G step with LPIPS, ArcFace and the FAN heatmap term (64 px FAN
+    input), DS branch, size 16: the card (cuDNN off, as in the G step test
+    above) against the CPU (oneDNN off: its float32 convolution backward
+    lands far from float64 on the heatmap G step, ``tests/test_torch_fan.py``),
+    same seeded weights and fixed noise; the losses at rtol 1e-4 and each
+    gradient held to ``chip_smoke.hold_gradient`` with the CPU's float64 run
+    as the exact reference."""
+    from chip_smoke import hold_gradient
+
+    tg = Trainer(HMAP_TINY, seed=7, device=cuda_device, input_size=128, fan_input_size=64)
+    tc = Trainer(HMAP_TINY, seed=7, device="cpu", input_size=128, fan_input_size=64)
+    photo, render, ref, _ = _train_inputs(10)
+    args = dict(use_edit=True, ds_flag=True, extreme_ds_flag=False, apply_hmap=True)
+    ops.reset_launches()
+    with torch.backends.cudnn.flags(enabled=False, allow_tf32=False):
+        got, got_m = steps.g_step_grads(tg.state, HMAP_TINY,
+                                        *(t.to(cuda_device) for t in (photo, render, ref)), **args)
+    assert all(ops.launch_counts()[k] > 0 for k in ("blur", "fused_leaky_relu_bwd")), ops.launch_counts()
+    with torch.backends.mkldnn.flags(enabled=False):
+        want, want_m = steps.g_step_grads(tc.state, HMAP_TINY, photo, render, ref, **args)
+        exact, _ = steps.g_step_grads(tc.float64_state(), HMAP_TINY,
+                                      *(t.double() for t in (photo, render, ref)), **args)
+    for k in ("g", "lpips", "l1", "face_id", "hmap"):
+        assert float(want_m[k]) > 0, k
+        torch.testing.assert_close(float(got_m[k]), float(want_m[k]), rtol=1e-4, atol=0)
+    bad = []
+    for part, tensors in exact.items():
+        part_max = max(float(e.abs().max()) for e in tensors.values())
+        for name, e in tensors.items():
+            ok, rel = hold_gradient(got[part][name].cpu(), want[part][name], e, part_max)
+            if not ok:
+                bad.append((part, name, rel))
+    assert not bad, bad
+
+
+@pytest.mark.gpu
+def test_eval_hook_scores_through_kernels_match_plain_on_card(cuda_device):
+    """``QuantEvalHook`` with LPIPS, ArcFace, a seeded InceptionV3 and FAN
+    on a size-16 trainer on the card, cuDNN's deterministic algorithms:
+    the scores through the kernels (K1, K3 and K4 launch, K2 and K5 do not)
+    and through the plain versions (nothing launches) within 1e-4 relative
+    plus 1e-6, FID within 1e-3 (the square root of a singular product)."""
+    from fm3dgan_torch.models.fan_landmark import fan_heatmap_landmark_fn
+    from fm3dgan_torch.models.inception import InceptionV3Pool3
+    from fm3dgan_torch.train.eval_hook import QuantEvalHook, make_fake_eval_batches
+
+    trainer = Trainer(HMAP_TINY, seed=7, device=cuda_device, input_size=128, fan_input_size=64)
+    torch.manual_seed(14)
+    inception = InceptionV3Pool3().requires_grad_(False).eval().to(cuda_device)
+    hook = QuantEvalHook(trainer, *make_fake_eval_batches(128, batch=4), inception_fn=inception,
+                         real_stats=(np.zeros(2048), np.eye(2048)),
+                         heatmap_landmark_fn=fan_heatmap_landmark_fn(trainer.state.fan, 64))
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True, allow_tf32=False):
+        ops.reset_launches()
+        got = hook(1)
+        counts = ops.launch_counts()
+        ops.reset_launches()
+        with ops.plain_versions():
+            want = hook(1)
+        assert not any(ops.launch_counts().values()), ops.launch_counts()
+    assert all(counts[k] > 0 for k in ("blur", "upsample2x", "fused_leaky_relu")), counts
+    assert counts["fused_leaky_relu_bwd"] == 0 and counts["downsample2x"] == 0, counts
+    for k, v in want.items():
+        assert np.isfinite(v), (k, v)
+        rtol = 1e-3 if k == "edit_fid" else 1e-4
+        assert abs(got[k] - v) <= rtol * abs(v) + 1e-6, (k, got[k], v)

@@ -44,6 +44,8 @@ def test_importing_the_port_loads_no_jax():
         "import fm3dgan_torch.pipeline, fm3dgan_torch.compat\n"
         "import fm3dgan_torch.losses, fm3dgan_torch.train, fm3dgan_torch.train.preempt\n"
         "import fm3dgan_torch.data, fm3dgan_torch.data.native, fm3dgan_torch.tools.train_3_encoder\n"
+        "import fm3dgan_torch.eval, fm3dgan_torch.eval.visual_eval, fm3dgan_torch.train.eval_hook\n"
+        "import fm3dgan_torch.models.fan_landmark, fm3dgan_torch.models.inception\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
     )

@@ -24,7 +24,6 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
-import optax
 import pytest
 import torch
 
@@ -37,6 +36,7 @@ from fm3dgan_torch.train import TrainConfig, Trainer, steps
 from fm3dgan_torch.train.state import TrainState, g_enc_modules, named_params
 from torch_port_utils import (
     CFG,
+    adam_first_moment,
     assert_close,
     assert_grads,
     grads_to_port_layout,
@@ -45,13 +45,6 @@ from torch_port_utils import (
 )
 
 ENCODERS = ("e_tsr", "e_w", "e_w_plus")
-
-
-def _adam_first_moment(opt_state):
-    (adam,) = [s for s in jax.tree_util.tree_leaves(
-        opt_state, is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState))
-        if isinstance(s, optax.ScaleByAdamState)]
-    return adam.mu
 
 
 def test_shared_iteration_matches_jax_fused_shared_step():
@@ -82,7 +75,7 @@ def test_shared_iteration_matches_jax_fused_shared_step():
         grads.setdefault(part, {})[name] = st.g_enc_opt.state[p]["exp_avg"]
     assert sorted(grads) == ["e_tsr", "e_w", "g"]
     new_stats = {k: jax.tree_util.tree_map(np.asarray, new.stats[k]) for k in ENCODERS}
-    mu = {k: v for k, v in _adam_first_moment(new.g_enc_opt).items() if k in grads}
+    mu = {k: v for k, v in adam_first_moment(new.g_enc_opt).items() if k in grads}
     assert_grads(grads, grads_to_port_layout(mu, new_stats), 1e-3,
                  what="shared iteration G and encoder gradients")
 

@@ -14,6 +14,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
+import optax
 from flax.core import unfreeze
 
 from fm3dgan.compat import torch_port
@@ -204,6 +205,15 @@ def split_g_enc(variables):
     params = {k: variables[k]["params"] for k in G_ENC}
     stats = {k: {kk: vv for kk, vv in variables[k].items() if kk != "params"} for k in G_ENC}
     return params, stats
+
+
+def adam_first_moment(opt_state):
+    """The first moment of the optax Adam in ``opt_state``: after one step
+    with beta1 = 0 (the lazy-regularised ratio of 0), the gradient."""
+    (adam,) = [s for s in jax.tree_util.tree_leaves(
+        opt_state, is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState))
+        if isinstance(s, optax.ScaleByAdamState)]
+    return adam.mu
 
 
 def grads_to_port_layout(jgrads, stats):
