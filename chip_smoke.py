@@ -51,7 +51,30 @@ Builds the hand-written CUDA kernels of ``fm3dgan_torch`` from
    sample grid every 2 iterations and a checkpoint with its eval line (FID
    against statistics the script writes) after iteration 3, then resumed
    from it: iteration 4's D and G losses must agree with the uninterrupted
-   run's.
+   run's;
+8. 2-encoder path phase: ``TwoEncoderModels.create(size=256)`` with seeded
+   random weights runs ``forward_2_encoder`` at batch 8 in float32 in its
+   five configurations (no co-modulation with the render or the photo as
+   the modulation input, Multiplication, Concatenation, Tensor Transform)
+   through the kernels and through the plain versions: within 1e-4, K1, K3
+   and K4 launching on the kernel path and nothing on the plain path; then
+   the Tensor Transform forward's img/s at batch 32;
+9. 2-encoder gradient phase: on a full-width 256 px
+   ``Trainer2(TrainConfig(), co_modulation="Tensor Transform",
+   ds_dataset_type="FFHQ")`` state, the gradients of a G step, of the FFHQ
+   step's G update and of a PPL step at batch ``TWO_GRAD_BATCH``, held as in
+   phase 3;
+10. 2-encoder training phase: that trainer runs iterations 0-5 at batch 16
+    (reconstruction with R1 and PPL, FFHQ dual supervision, PPL), printing
+    ms, losses and launches per iteration; every loss finite, every kernel
+    launched, and the iterations without regulariser launch each kernel as
+    often as the kernel phase's weights say (an FFHQ iteration twice as
+    often: it runs G, D_ffhq and their backward once more);
+11. 2-encoder CLI phase: ``python -m fm3dgan_torch.tools.train_2_encoder``
+    (its ``main``) with fake data, Tensor Transform and FFHQ dual
+    supervision, 6 iterations at 256 px with a checkpoint after iteration 3,
+    then resumed from it: iteration 4's losses must equal the uninterrupted
+    run's to the bit (cuDNN's deterministic algorithms in both).
 
 Prints one JSON line per measurement and per phase's seconds, the card's
 name and power limit, a ``{"kernels": [...]}`` summary, and last
@@ -92,6 +115,12 @@ HMAP_GRAD_BATCH = 8
 FAN_BATCH = 16  # fakes (and as many renders) per G step
 FAN_FLOAT64_BATCH = 2
 EDIT_PHOTOS = 16  # photos per edit batch, each with 4 renders
+# The 2-encoder forward's configurations: (co-modulation mode, modulation input).
+TWO_ENC_CONFIGS = [(None, "Render Image"), (None, "Photo Image"), ("Multiplication", "Render Image"),
+                   ("Concatenation", "Render Image"), ("Tensor Transform", "Render Image")]
+TWO_ENC_MODE = "Tensor Transform"  # the 2-encoder trainer's mode
+TWO_GRAD_BATCH = 8
+TWO_TRAIN_ITERS = 6
 
 # (C, R): blur input [N, C, 2R+1, 2R+1] after each upsampling transposed conv.
 BLUR_SHAPES = [(512, 4), (512, 8), (512, 16), (512, 32), (256, 64), (128, 128)]
@@ -581,7 +610,7 @@ def _hold_gradients(ops, trainer, run, inputs, phase, batch):
     n, zero, plain_off, repeat_differs, over, fails = 0, 0, 0, [], [], []
     for step, parts in exact.items():
         for part, tensors in parts.items():
-            group = "encoders" if part.startswith("e_") else "g_and_d"
+            group = "g_and_d" if part in ("g", "d", "d_edit", "d_ffhq") else "encoders"
             part_max = max(float(e.abs().max()) for e in tensors.values())
             for name, e in tensors.items():
                 n += 1
@@ -996,6 +1025,261 @@ def eval_phase(ops, trainer):
     return rec
 
 
+# ---------------- the 2-encoder scheme ----------------------------------------
+
+
+def two_encoder_path_phase(ops, pipeline):
+    """``forward_2_encoder`` at batch 8, 256 px, float32, full width, in each
+    configuration through the kernels and through the plain versions, then
+    the Tensor Transform forward's throughput at batch 32 (kernel, plain,
+    plain, kernel)."""
+    photo, render = _inputs(BATCH, 256, seed=51)
+    out = {}
+    models = None
+    for co_mod, mod_encode in TWO_ENC_CONFIGS:
+        if models is None or models.co_modulation != co_mod:
+            del models
+            torch.cuda.empty_cache()
+            models = pipeline.TwoEncoderModels.create(size=256, co_modulation=co_mod, device="cuda",
+                                                      seed=0)
+        run = lambda: pipeline.forward_2_encoder(models, photo, render, mod_encode=mod_encode)  # noqa: E731
+        ops.reset_launches()
+        image = run()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        ops.reset_launches()
+        with ops.plain_versions():
+            ref = run()
+        torch.cuda.synchronize()
+        plain_counts = ops.launch_counts()
+        name = f"{co_mod or 'none'} / {mod_encode}"
+        diff = float((image - ref).abs().max())
+        rec = dict(phase="two_encoder_path", config=name, batch=BATCH, shape=list(image.shape),
+                   style_dim=models.generator.style_dim, finite=bool(torch.isfinite(image).all()),
+                   launches=counts, plain_launches=plain_counts, max_abs_diff_vs_plain=diff,
+                   max_abs_image=float(image.abs().max()), tol=1e-4)
+        emit(rec)
+        out[name] = rec
+        require(rec["finite"], f"2-encoder {name}: output is not finite")
+        require(tuple(image.shape) == (BATCH, 256, 256, 3), f"2-encoder {name}: shape {image.shape}")
+        require(diff <= 1e-4, f"2-encoder {name}: kernel path vs plain path {diff}")
+        require(counts == EXPECTED_LAUNCHES, f"2-encoder {name}: launches {counts}")
+        require(not any(plain_counts.values()), f"2-encoder {name}: plain path launched {plain_counts}")
+        del image, ref
+
+    # models now holds the Tensor Transform configuration.
+    photo, render = _inputs(TIMED_BATCH, 256, seed=52)
+    iters = 5
+
+    def timed():
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            pipeline.forward_2_encoder(models, photo, render)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / iters
+
+    for _ in range(2):
+        pipeline.forward_2_encoder(models, photo, render)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = {"kernel": [], "plain": []}
+    for which in ("kernel", "plain", "plain", "kernel"):
+        if which == "plain":
+            with ops.plain_versions():
+                times[which].append(timed())
+        else:
+            times[which].append(timed())
+    dt, dt_plain = sum(times["kernel"]) / 2, sum(times["plain"]) / 2
+    emit(dict(phase="two_encoder_timed_forward", config=TWO_ENC_MODE, dtype="float32",
+              batch=TIMED_BATCH, ms_per_forward=dt * 1e3, img_per_s=TIMED_BATCH / dt,
+              plain_ms_per_forward=dt_plain * 1e3, plain_img_per_s=TIMED_BATCH / dt_plain,
+              runs_ms={k: [t * 1e3 for t in v] for k, v in times.items()},
+              max_memory_allocated_bytes=torch.cuda.max_memory_allocated()))
+    del models
+    torch.cuda.empty_cache()
+    return out
+
+
+def _two_encoder_inputs(batch, seed):
+    """Seeded uint8 NHWC batches at 256 px: photos, renders (top quarter
+    background) and FFHQ reals."""
+    g = torch.Generator().manual_seed(seed)
+    photo, render, ffhq = (torch.randint(0, 256, (batch, 256, 256, 3), generator=g, dtype=torch.uint8)
+                           for _ in range(3))
+    render[:, :64] = 0
+    return photo, render, ffhq
+
+
+def two_encoder_gradient_phase(ops, train, trainer):
+    """The G step (DS branch: GAN, LPIPS, L1, face-ID, face-regional), the
+    FFHQ step's G update (against D_ffhq, face-ID to the photo) and a PPL
+    step (fixed PPL image, half the batch) on the Tensor Transform state,
+    fixed noise, held as the gradient phase holds the 3-encoder steps
+    (:func:`_hold_gradients`)."""
+    steps, steps2, cfg = train.steps, train.steps_2encoder, trainer.config
+    enc = trainer.mod_encode
+    photo, render, ffhq = (steps.prepare_batch(a, "cuda")
+                           for a in _two_encoder_inputs(TWO_GRAD_BATCH, 61))
+    ref = photo.flip(0)  # another photo of the batch
+    g = torch.Generator(device="cuda").manual_seed(62)
+    half = TWO_GRAD_BATCH // 2
+    ppl = torch.randn(half, 3, 256, 256, device="cuda", generator=g) / 256
+
+    def run(state, photo, render, ref, ffhq, ppl):
+        g_step, losses = steps2.g_step_grads(state, cfg, photo, render, ref, enc, ds_flag=True)
+        g_ffhq, ffhq_losses, _ = steps2.g_ffhq_ds_step_grads(state, cfg, photo, render, photo, enc)
+        g_reg, _, ppl_m = steps2.g_reg_step_grads(state, cfg, photo[:half], render[:half], enc,
+                                                  ppl_noise=ppl)
+        losses = {**losses, **ffhq_losses, "g_reg": ppl_m["g_reg"]}
+        return ({"g_step": g_step, "g_ffhq_ds_step": g_ffhq, "g_reg_step": g_reg},
+                {k: float(v) for k, v in losses.items()})
+
+    rec = _hold_gradients(ops, trainer, run, (photo, render, ref, ffhq, ppl),
+                          "two_encoder_gradients", TWO_GRAD_BATCH)
+    require(all(rec["losses"][k] > 0 for k in ("lpips", "face_id", "face_reg", "face_id_ffhq")),
+            f"the 2-encoder G steps ran without their loss terms: {rec['losses']}")
+    return rec
+
+
+def _two_encoder_branch(trainer, i) -> str:
+    cfg = trainer.config
+    name = ("ffhq_ds" if trainer.ds_dataset_type == "FFHQ" else "ds") if cfg.is_ds_iter(i) \
+        else "reconstruction"
+    regs = [r for r, due in (("r1", i % cfg.d_reg_every == 0), ("ppl", i % cfg.g_reg_every == 0))
+            if due]
+    return "+".join([name, *regs])
+
+
+def two_encoder_train_phase(ops, trainer, per_iteration):
+    """``Trainer2.train_iteration`` on iterations 0-5 at batch 16 (uint8,
+    256 px; the reference is the photo, and on FFHQ iterations the FFHQ
+    reals a third batch); ms, losses, launches and allocator counts per
+    iteration.  Every loss finite; G, both encoders, D, D_ffhq and g_ema
+    moved; every kernel launched; an iteration without regulariser launches
+    ``per_iteration`` (the 3-encoder weights: G and D have the same layers),
+    an FFHQ one twice that (the FFHQ steps run G forward twice, G backward
+    once, D_ffhq forward three times and backward three times: another
+    iteration's worth)."""
+    st = trainer.state
+    mods = {"g": st.models.generator, "tensor_encoder": st.models.tensor_encoder,
+            "modulation_encoder": st.models.modulation_encoder, "d": st.d, "d_ffhq": st.d_ffhq,
+            "g_ema": st.g_ema}
+    before = {k: [p.detach().clone() for p in m.parameters()] for k, m in mods.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    ms_by_branch, launches_by_branch = {}, {}
+    for i in range(TWO_TRAIN_ITERS):
+        photo, render, ffhq = _two_encoder_inputs(TRAIN_BATCH, 200 + i)
+        before_i = ops.launch_counts()
+        alloc_before = _allocator_counts()
+        t0 = time.perf_counter()
+        m = trainer.train_iteration(i, photo, render, photo, ffhq_ref=ffhq)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = {k: v - before_i[k] for k, v in ops.launch_counts().items()}
+        losses = {k: float(v) for k, v in m.items() if torch.is_tensor(v)}
+        branch = _two_encoder_branch(trainer, i)
+        ms_by_branch[f"{i}:{branch}"] = ms
+        launches_by_branch[f"{i}:{branch}"] = counts
+        emit(dict(phase="two_encoder_train", iteration=i, batch=TRAIN_BATCH, branch=branch,
+                  co_modulation=trainer.co_modulation, losses=losses, ms=ms, launches=counts,
+                  allocator={k: v - alloc_before[k] for k, v in _allocator_counts().items()}))
+        require(all(math.isfinite(v) for v in losses.values()), f"2-encoder iteration {i}: {losses}")
+        if "+" not in branch:
+            want = {k: v * (2 if branch == "ffhq_ds" else 1) for k, v in per_iteration.items()}
+            require(counts == want, f"2-encoder iteration {i} ({branch}): launches {counts} != {want}")
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    rec = dict(phase="two_encoder_train_summary", iterations=TWO_TRAIN_ITERS, batch=TRAIN_BATCH,
+               co_modulation=trainer.co_modulation, ds_dataset_type=trainer.ds_dataset_type,
+               ms_by_branch=ms_by_branch, launches_by_branch=launches_by_branch,
+               launches=launches, max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+               mean_path_length=float(st.mean_path_length))
+    emit(rec)
+    for k, m in mods.items():
+        require(any(not torch.equal(a, b) for a, b in zip(before[k], m.parameters())),
+                f"2-encoder training did not change {k}")
+    require(all(v > 0 for v in launches.values()), f"2-encoder training launches {launches}")
+    return rec
+
+
+def two_encoder_cli_phase(ops):
+    """The 2-encoder CLI as a user starts it (its ``main``): fake data,
+    Tensor Transform, FFHQ dual supervision, full width, 256 px, a
+    checkpoint after iteration ``CLI_SAVE``; then a run resumed from it,
+    whose iterations must give the uninterrupted run's losses to the bit:
+    ``CLI_CHECK`` (reconstruction, then PPL) and the FFHQ-DS iteration after
+    it, which needs D_ffhq, its Adam and the G Adam's two updates back from
+    the checkpoint.  PPL takes the whole batch (``--path_reg_batch_shrink 1``):
+    the host RNG that draws its subset is not checkpointed, as in the JAX
+    CLI, so a subset would differ after the resume and so would every loss
+    after it.  Both runs take cuDNN's deterministic algorithms (see
+    :func:`cli_phase`)."""
+    from fm3dgan_torch.tools import train_2_encoder as cli
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_cli2")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    first, resumed = os.path.join(root, "run"), os.path.join(root, "resumed")
+    args = ["--fake_data", "--co_mod", TWO_ENC_MODE, "--ds_dataset_type", "FFHQ",
+            "--training_iters", str(CLI_ITERS), "--model_save_freq", str(CLI_SAVE), "--log_every", "1",
+            "--path_reg_batch_shrink", "1"]
+    rec = dict(phase="two_encoder_cli", cudnn_deterministic=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        rc = cli.main(args + ["--exp_dir", first])
+        torch.cuda.synchronize()
+        rec["run_s"] = time.perf_counter() - t0
+        rec["launches"] = ops.launch_counts()
+        require(rc == 0, f"the 2-encoder CLI exited {rc}")
+        ckpt = os.path.join(first, "ckpt")
+        require(sorted(os.listdir(ckpt)) == [f"{CLI_SAVE:06d}.json", f"{CLI_SAVE:06d}.pt"],
+                f"checkpoints {os.listdir(ckpt)}")
+        rec["checkpoint_bytes"] = os.path.getsize(os.path.join(ckpt, f"{CLI_SAVE:06d}.pt"))
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rc = cli.main(args + ["--exp_dir", resumed, "--resume_dir", ckpt,
+                              "--resume_step", str(CLI_SAVE)])
+        torch.cuda.synchronize()
+        rec["resumed_run_s"] = time.perf_counter() - t0
+        require(rc == 0, f"the resumed 2-encoder CLI exited {rc}")
+        logs = {}
+        for name, exp in (("run", first), ("resumed", resumed)):
+            with open(os.path.join(exp, "training_log.jsonl")) as f:
+                logs[name] = {line["iter"]: line for line in map(json.loads, f) if "iter" in line}
+        require(sorted(logs["run"]) == list(range(CLI_ITERS)), f"iterations {sorted(logs['run'])}")
+        require(sorted(logs["resumed"]) == list(range(CLI_SAVE + 1, CLI_ITERS)),
+                f"resumed iterations {sorted(logs['resumed'])}")
+        for line in logs["run"].values():
+            require(all(math.isfinite(v) for v in line.values() if isinstance(v, float)),
+                    f"2-encoder CLI iteration {line}")
+        require(all("d_ffhq" in logs["run"][i] for i in range(1, CLI_ITERS, 2)),
+                "the FFHQ branch did not run on the DS iterations")
+        checked = (CLI_CHECK, CLI_CHECK + 1)
+        require("g_reg" in logs["run"][CLI_CHECK] and "d_ffhq" in logs["run"][CLI_CHECK + 1],
+                f"iterations {checked}: {[sorted(logs['run'][i]) for i in checked]}")
+        rec["resume_diff"] = {}
+        for i in checked:
+            a, b = logs["run"][i], logs["resumed"][i]
+            require(sorted(a) == sorted(b), f"iteration {i}: keys {sorted(a)} vs {sorted(b)}")
+            # "r1" repeats the last R1 that ran (iteration 0's, not in the
+            # resumed run), as the JAX trainer logs it.
+            rec["resume_diff"][i] = {k: abs(a[k] - b[k]) for k in a
+                                     if k not in ("iter", "time_s", "load_s", "r1")}
+        rec["time_s"] = {i: line["time_s"] for i, line in logs["run"].items()}
+        emit(rec)
+        require(all(v > 0 for v in rec["launches"].values()), f"2-encoder CLI launches {rec['launches']}")
+        require(all(v == 0.0 for d in rec["resume_diff"].values() for v in d.values()),
+                f"resumed iterations {checked} differ: {rec['resume_diff']}")
+    finally:
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(root, ignore_errors=True)
+    return rec
+
+
 # Summary key -> record key, summed per iteration or per forward.
 SUMMED = {"ms": "kernel_ms", "device_ms": "device_ms", "host_us": "host_us",
           "plain_ms": "plain_ms", "bound_ms": "bound_ms", "library_ms": "library_ms",
@@ -1015,13 +1299,14 @@ def _weighted_sums(recs, weight_key):
     return out
 
 
-def summary(records, launches, inference_launches):
+def summary(records, launches, inference_launches, two_encoder_launches):
     """One line per kernel.  The SUMMED keys are those of one float32
     training iteration without regulariser at batch 16 (the kernel-phase
     records of every training shape, each counted as often as the iteration
     launches it); the forward_* keys are those of one batch-8 inference
     forward.  ``launches`` counts the float32 training run,
-    ``launches_inference`` one batch-8 forward."""
+    ``launches_inference`` one batch-8 forward, ``launches_two_encoder`` the
+    2-encoder training run."""
     kernels = []
     for name, info in KERNEL_INFO.items():
         recs = [r for r in records if r["kernel"] == name and r["dtype"] == "float32"]
@@ -1031,6 +1316,7 @@ def summary(records, launches, inference_launches):
         fwd = _weighted_sums(fwd_recs, "launches_per_forward")
         kernels.append(dict(
             name=name, **info, launches=launches[name],
+            launches_two_encoder=two_encoder_launches[name],
             launches_per_iteration=sum(r["launches_per_iteration"] for r in train_recs),
             launches_inference=inference_launches[name],
             max_abs_err=max(r["max_abs_diff"] for r in recs),
@@ -1127,7 +1413,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("cli", cli_phase, ops)
 
-    result = summary(records, launches, path["launches"])
+    # The 2-encoder scheme: the forward in its five configurations, then the
+    # shipped configuration at 256 px with Tensor Transform and FFHQ dual
+    # supervision: held gradients, training iterations and the CLI.
+    phase("two_encoder_path", two_encoder_path_phase, ops, pipeline)
+    trainer = train.Trainer2(config, seed=0, co_modulation=TWO_ENC_MODE, ds_dataset_type="FFHQ",
+                             device="cuda")
+    phase("two_encoder_gradients", two_encoder_gradient_phase, ops, train, trainer)
+    torch.cuda.empty_cache()
+    two_train = phase("two_encoder_train", two_encoder_train_phase, ops, trainer, per_iteration)
+    del trainer
+    torch.cuda.empty_cache()
+    phase("two_encoder_cli", two_encoder_cli_phase, ops)
+
+    result = summary(records, launches, path["launches"], two_train["launches"])
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -14,8 +14,8 @@ checkpoint and a converted JAX tree load into the port alike.
   * flax BatchNorm scale/bias + batch_stats mean/var ->
     weight/bias/running_mean/running_var (+ num_batches_tracked = 0)
   * noise buffers [1, H, W, 1] -> [1, 1, H, W], copied, never regenerated
-  * D ``final_linear0`` [(h, w, c), out] -> [out, (c, h, w)]: the NHWC
-    flatten permutation undone
+  * D ``final_linear0`` and the encoder head ``ten_fc`` [(h, w, c), out]
+    -> [out, (c, h, w)]: the NHWC flatten permutation undone
 
 Inputs are nested mappings of numpy arrays (``jax.device_get`` of the
 variables); outputs are float32 CPU tensors.
@@ -42,6 +42,14 @@ def _conv(k) -> torch.Tensor:
 
 def _linear(w) -> torch.Tensor:
     return _t(np.transpose(np.asarray(w), (1, 0)))
+
+
+def _flatten_linear(w) -> torch.Tensor:
+    """A linear over a flattened NHWC [4, 4, C] map, [(h, w, c), out] ->
+    [out, (c, h, w)] over the NCHW flatten."""
+    w = np.transpose(np.asarray(w), (1, 0))
+    c = w.shape[1] // 16
+    return _t(np.transpose(w.reshape(w.shape[0], 4, 4, c), (0, 3, 1, 2)).reshape(w.shape[0], -1))
 
 
 def _bn(sd: SD, dst: str, params: Mapping, stats: Mapping) -> None:
@@ -112,10 +120,7 @@ def discriminator_from_jax(v: Mapping[str, Any]) -> SD:
         sd[f"convs.{i}.skip.1.weight"] = _conv(p["skip"]["conv"]["weight"])
     sd["final_conv.0.weight"] = _conv(params["final_conv"]["conv"]["weight"])
     sd["final_conv.1.bias"] = _t(params["final_conv"]["activate"]["bias"])
-    w0 = np.transpose(np.asarray(params["final_linear0"]["weight"]), (1, 0))  # [out, (h, w, c)]
-    c = w0.shape[1] // 16
-    w0 = np.transpose(w0.reshape(w0.shape[0], 4, 4, c), (0, 3, 1, 2)).reshape(w0.shape[0], -1)
-    sd["final_linear.0.weight"] = _t(w0)
+    sd["final_linear.0.weight"] = _flatten_linear(params["final_linear0"]["weight"])
     sd["final_linear.0.bias"] = _t(params["final_linear0"]["bias"])
     sd["final_linear.1.weight"] = _linear(params["final_linear1"]["weight"])
     sd["final_linear.1.bias"] = _t(params["final_linear1"]["bias"])
@@ -138,6 +143,9 @@ def resnet18_from_jax(v: Mapping[str, Any]) -> SD:
             if "downsample_conv" in p:
                 sd[f"{dst}.downsample.0.weight"] = _conv(p["downsample_conv"]["kernel"])
                 _bn(sd, f"{dst}.downsample.1", p["downsample_bn"], s["downsample_bn"])
+    if "ten_fc" in params:
+        sd["ten_fc.weight"] = _flatten_linear(params["ten_fc"]["kernel"])
+        sd["ten_fc.bias"] = _t(params["ten_fc"]["bias"])
     return sd
 
 
@@ -275,13 +283,23 @@ def inception_from_jax(v: Mapping[str, Any]) -> SD:
     return sd
 
 
+def encoder_from_jax(v: Mapping[str, Any]) -> SD:
+    """A 2-encoder modulation encoder: pSp for the co-modulation modes,
+    ResNet-18 without them."""
+    return (psp_from_jax if "input_conv" in v["params"] else resnet18_from_jax)(v)
+
+
 _CONVERTERS = {
     "g": generator_from_jax,
+    "g_ema": generator_from_jax,
     "d": discriminator_from_jax,
     "d_edit": discriminator_from_jax,
+    "d_ffhq": discriminator_from_jax,
     "e_tsr": resnet18_from_jax,
     "e_w": resnet18_from_jax,
     "e_w_plus": psp_from_jax,
+    "tensor_encoder": resnet18_from_jax,
+    "modulation_encoder": encoder_from_jax,
     "lpips": lpips_from_jax,
     "arcface": arcface_from_jax,
     "fan": fan_from_jax,
@@ -290,9 +308,21 @@ _CONVERTERS = {
 
 
 def from_jax(variables_np: Mapping[str, Any]) -> Dict[str, SD]:
-    """{'g', 'e_tsr', 'e_w', 'e_w_plus', 'd', 'd_edit', 'lpips', 'arcface',
+    """{'g', 'g_ema', 'e_tsr', 'e_w', 'e_w_plus', 'tensor_encoder',
+    'modulation_encoder', 'd', 'd_edit', 'd_ffhq', 'lpips', 'arcface',
     'fan', 'inception'} flax variables (numpy leaves) -> state dicts of the
     same keys, for ``FaceManipulator.load_variables``,
-    ``Discriminator.load_state_dict``, the ``Trainer``'s
-    ``frozen_state_dicts`` and ``InceptionV3Pool3.load_state_dict``."""
+    ``TwoEncoderModels.load_variables``, ``Discriminator.load_state_dict``,
+    the trainers' ``frozen_state_dicts`` and
+    ``InceptionV3Pool3.load_state_dict``."""
     return {k: _CONVERTERS[k](v) for k, v in variables_np.items() if k in _CONVERTERS}
+
+
+def trainer2_from_jax(state_np: Mapping[str, Any]) -> Dict[str, SD]:
+    """The numpy tree of a JAX ``Trainer2.state`` -> state dicts of
+    'tensor_encoder', 'modulation_encoder', 'g', 'd', 'd_ffhq' and 'g_ema'
+    (g_ema with G's noise buffers, which the JAX state keeps once)."""
+    params, stats = state_np["params"], state_np["stats"]
+    variables = {k: {"params": p, **stats.get(k, {})} for k, p in params.items()}
+    variables["g_ema"] = {"params": state_np["g_ema"], **stats.get("g", {})}
+    return from_jax(variables)

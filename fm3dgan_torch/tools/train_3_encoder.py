@@ -36,37 +36,27 @@ not ported yet.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import math
 import os
 import sys
-import time
 from typing import List, Optional
 
 import numpy as np
 
-from fm3dgan_torch.train.config import TrainConfig
-
-
-def _bool(s: str) -> bool:
-    return s.lower() in ("1", "true", "yes")
+from fm3dgan_torch.tools.common import (
+    add_config_flags,
+    config_from_args,
+    downsample_ref,
+    parse_bool,
+    resolve_cache,
+    train_loop,
+)
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    for f in dataclasses.fields(TrainConfig):
-        flag = f"--{f.name}"
-        if isinstance(f.default, bool):
-            p.add_argument(flag, type=_bool, default=f.default)
-        elif f.default is None or f.name == "w_plus_sliced_layer":
-            p.add_argument(flag, type=str, default=None)
-        elif isinstance(f.default, int):
-            p.add_argument(flag, type=int, default=f.default)
-        elif isinstance(f.default, float):
-            p.add_argument(flag, type=float, default=f.default)
-        else:
-            p.add_argument(flag, type=str, default=f.default)
+    add_config_flags(p)
     p.add_argument("--exp_dir", type=str, default="./Exp")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", type=str, default=None,
@@ -98,7 +88,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--n_real_eval_faces", type=int, default=2)
     p.add_argument("--n_syn_eval_faces", type=int, default=2)
     p.add_argument("--n_data_workers", type=int, default=4)
-    p.add_argument("--input_uint8", type=_bool, default=True,
+    p.add_argument("--input_uint8", type=parse_bool, default=True,
                    help="load batches as uint8 and normalise on the device (a quarter of "
                         "the bytes to copy, same values); false = float32 batches")
     p.add_argument("--cache_decoded", type=str, default="auto", choices=("auto", "true", "false"),
@@ -115,22 +105,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     return p
 
 
-def config_from_args(args) -> TrainConfig:
-    kw = {f.name: getattr(args, f.name) for f in dataclasses.fields(TrainConfig)}
-    if isinstance(kw["w_plus_sliced_layer"], str):
-        kw["w_plus_sliced_layer"] = tuple(int(x) for x in kw["w_plus_sliced_layer"].split(","))
-    return TrainConfig(**kw)
-
-
-def _resolve_cache(args, cfg):
-    if args.cache_decoded != "auto":
-        return args.cache_decoded == "true"
-    from fm3dgan_torch.data.datasets import auto_cache_entries
-
-    return auto_cache_entries(args.input_size or cfg.size)
-
-
-def make_loaders(args, cfg: TrainConfig):
+def make_loaders(args, cfg):
     """(reconstruction, dual-supervision, extreme-pose or None) batch sources."""
     size = args.input_size or cfg.size
     if args.fake_data:
@@ -150,7 +125,7 @@ def make_loaders(args, cfg: TrainConfig):
     if not (args.rec_data_dir and args.ds_data_dir):
         raise SystemExit("give --rec_data_dir and --ds_data_dir, or --fake_data")
     transform = uint8_transform(size) if args.input_uint8 else default_transform(size)
-    cache = _resolve_cache(args, cfg)
+    cache = resolve_cache(args, cfg)
     rec_set = ReconstructionDataset(os.path.join(args.rec_data_dir, "img"),
                                     os.path.join(args.rec_data_dir, "render_img"),
                                     transform=transform, cache=cache)
@@ -167,19 +142,6 @@ def make_loaders(args, cfg: TrainConfig):
                         index_sampler=lambda rng: extreme_pose_indices(
                             len(ep_set), ep_set.n_img_per_id, rng))
     return rec, ds, ep
-
-
-def _diverged(line, threshold: float) -> bool:
-    vals = [line.get("g", 0.0), line.get("l1", 0.0)]
-    return threshold > 0 and any(not math.isfinite(v) or abs(v) > threshold for v in vals)
-
-
-def count_diverged(count: int, lines, threshold: float) -> int:
-    """The count of consecutive diverged log lines after ``lines``: each
-    diverged line adds one, a healthy line resets it to 0."""
-    for line in lines:
-        count = count + 1 if _diverged(line, threshold) else 0
-    return count
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -207,16 +169,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     def load_batch(i):
         g_input, r_input, g_ref = data_loading(rec, ds, cfg.is_ds_iter(i), extreme_loader=ep or ds,
                                                extreme_ds_flag=cfg.is_extreme_ds_iter(i))
-        if g_ref.shape[1] != cfg.size:
-            # Encoder inputs larger than the generated image (small
-            # configurations): box-downsample the references to its size,
-            # staying uint8 on the uint8 path.
-            f = g_ref.shape[1] // cfg.size
-            dtype = g_ref.dtype
-            g_ref = g_ref.reshape(g_ref.shape[0], cfg.size, f, cfg.size, f, 3).mean(axis=(2, 4))
-            g_ref = (np.clip(np.round(g_ref), 0, 255).astype(np.uint8) if dtype == np.uint8
-                     else g_ref.astype(np.float32))
-        return g_input, r_input, g_ref
+        return g_input, r_input, downsample_ref(g_ref, cfg.size)
 
     if args.fake_data:
         # The fake sources are seeded streams: a resumed run draws past the
@@ -226,85 +179,32 @@ def main(argv: Optional[List[str]] = None) -> int:
             data_loading(rec, ds, cfg.is_ds_iter(i), extreme_loader=ep or ds,
                          extreme_ds_flag=cfg.is_extreme_ds_iter(i))
 
+    def on_sample(i, batch):
+        if val_sets is not None:
+            _save_val_set_grid(trainer, val_sets, sample_dir, i)
+        else:
+            _save_sample_grid(trainer, batch[0], batch[1], sample_dir, i)
+
+    def on_save(i, logf):
+        if eval_hook is None:
+            return
+        scores = eval_hook(i)
+        logf.write(json.dumps({"eval": scores}) + "\n")
+        logf.flush()
+        printable = {k: round(v, 4) for k, v in scores.items()
+                     if isinstance(v, float) and math.isfinite(v)}
+        print(f"[{i}] quant eval: {printable}", flush=True)
+
+    def tags(i):
+        return (" [DS]" if cfg.is_ds_iter(i) else "") + (" [EP]" if cfg.is_extreme_ds_iter(i) else "")
+
     stopper = GracefulShutdown()
     try:
-        return _train(args, cfg, trainer, start_iter, load_batch, ckpt_dir, sample_dir,
-                      eval_hook, val_sets, stopper)
+        return train_loop(args, cfg, trainer, start_iter,
+                          lambda i: trainer.stage_batch(*load_batch(i)), ckpt_dir, stopper, tags,
+                          on_sample=on_sample, on_save=on_save)
     finally:
         stopper.restore()
-
-
-def _train(args, cfg, trainer, start_iter, load_batch, ckpt_dir, sample_dir, eval_hook,
-           val_sets, stopper) -> int:
-    log_path = os.path.join(args.exp_dir, "training_log.jsonl")
-    pending: list = []
-    diverged_lines = 0
-    # Double-buffered input: batch i is on the device (or on its way) when
-    # iteration i is enqueued; batch i + 1's copy starts right after.
-    staged = trainer.stage_batch(*load_batch(start_iter))
-    with open(log_path, "a") as logf:
-        for i in range(start_iter, cfg.training_iters):
-            t0 = time.time()
-            ds_flag, ep_flag = cfg.is_ds_iter(i), cfg.is_extreme_ds_iter(i)
-            batch = staged
-            metrics = trainer.train_iteration(i, *batch)
-            # One snapshot per iteration: after a signal, skip the next batch,
-            # the grid and the scores, and go straight to the final checkpoint.
-            preempt_now = stopper.requested
-            load_s = 0.0
-            if not preempt_now and i + 1 < cfg.training_iters:
-                t_load = time.time()
-                staged = trainer.stage_batch(*load_batch(i + 1))
-                load_s = time.time() - t_load
-            # Host time of the iteration (the device may still be running it).
-            dt = time.time() - t0
-            pending.append((i, dt, load_s, ds_flag, ep_flag, metrics))
-            sample_due = i % cfg.val_sample_freq == 0 and i > 0
-            save_due = i % cfg.model_save_freq == 0 and i > 0
-            if (len(pending) >= max(1, args.log_every) or i == cfg.training_iters - 1
-                    or sample_due or save_due or preempt_now):
-                lines = []
-                for j, jdt, jload, jds, jep, m in pending:
-                    line = {"iter": j, "time_s": round(jdt, 3), "load_s": round(jload, 3),
-                            **{k: (float(v) if hasattr(v, "item") else v) for k, v in m.items()}}
-                    logf.write(json.dumps(line) + "\n")
-                    print(f"[{j}] d={line.get('d', 0):.4f} g={line.get('g', 0):.4f} "
-                          f"l1={line.get('l1', 0):.4f} r1={line.get('r1', 0):.4f} "
-                          f"ppl={line.get('g_reg', 0):.4f} ({jdt:.2f}s)"
-                          + (" [DS]" if jds else "") + (" [EP]" if jep else ""), flush=True)
-                    lines.append(line)
-                logf.flush()
-                pending.clear()
-                diverged_lines = count_diverged(diverged_lines, lines, args.divergence_threshold)
-                if diverged_lines >= 2 * max(1, args.log_every):
-                    print(f"[{i}] DIVERGENCE: |g| or |l1| beyond {args.divergence_threshold:g} "
-                          f"(or non-finite) in {diverged_lines} consecutive log lines: checkpoint "
-                          f"{i:06d} and exit 3.  Resume from an earlier checkpoint "
-                          f"(--resume_dir {ckpt_dir} --resume_step <last good>), typically "
-                          f"with a lower --lr.", flush=True)
-                    logf.write(json.dumps({"diverged": i,
-                                           "threshold": args.divergence_threshold}) + "\n")
-                    logf.flush()
-                    trainer.save_checkpoint(ckpt_dir, i)
-                    return 3
-            if sample_due and not preempt_now:
-                if val_sets is not None:
-                    _save_val_set_grid(trainer, val_sets, sample_dir, i)
-                else:
-                    _save_sample_grid(trainer, batch[0], batch[1], sample_dir, i)
-            if save_due and not preempt_now:
-                if eval_hook is not None:
-                    scores = eval_hook(i)
-                    logf.write(json.dumps({"eval": scores}) + "\n")
-                    logf.flush()
-                    printable = {k: round(v, 4) for k, v in scores.items()
-                                 if isinstance(v, float) and math.isfinite(v)}
-                    print(f"[{i}] quant eval: {printable}", flush=True)
-                trainer.save_checkpoint(ckpt_dir, i)
-            if preempt_now:
-                stopper.checkpoint_and_exit(trainer, ckpt_dir, i, logf)
-                break
-    return 0
 
 
 def _make_eval_hook(args, cfg, trainer):

@@ -1,4 +1,5 @@
-"""Host-side training loop of the 3-encoder model.
+"""Host-side training loop of the 3-encoder model, and ``TrainerBase``,
+what it shares with the 2-encoder one (``loop2.py``).
 
 Counterpart of ``fm3dgan/train/loop.py``'s ``Trainer``.  An iteration is the
 D step, lazy R1, the G step (GAN, LPIPS, L1, face-ID, face-regional), lazy
@@ -45,39 +46,23 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 OPTIMIZERS = ("g_enc_opt", "d_opt", "d_edit_opt")
 
 
-class Trainer:
-    """Builds the models, the frozen loss networks and the train state, and
-    runs iterations on ``device`` (``cuda`` unless the caller passes
-    another).  ``frozen_state_dicts`` may hold reference-layout state dicts
-    for ``lpips``, ``arcface`` and ``fan``, which replace their random
-    weights.  ``use_fan`` None builds FAN when ``hmap_loss_lambda > 0``;
-    it takes its input at ``fan_input_size`` (256 for the pretrained
-    2DFAN-4; a multiple of 64 px)."""
+class TrainerBase:
+    """What the 3-encoder and the 2-encoder trainers share: the device, the
+    seeds, the frozen loss networks, the PPL subset's host RNG, the
+    per-iteration noise generators, batch staging and checkpoints.  A
+    subclass sets ``OPTIMIZERS`` (its state's optimizer attributes) and
+    builds ``self.state``; ``_modules`` names the modules a checkpoint holds
+    and ``_meta`` the fields of its ``.json``."""
 
-    def __init__(
-        self,
-        config: TrainConfig,
-        seed: int = 0,
-        use_lpips: bool = True,
-        use_arcface: bool = True,
-        use_fan: Optional[bool] = None,
-        fan_input_size: int = 256,
-        device=None,
-        input_size: Optional[int] = None,
-        frozen_state_dicts: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
-    ):
+    OPTIMIZERS: Tuple[str, ...] = ()
+
+    def __init__(self, config: TrainConfig, seed: int, device, input_size: Optional[int],
+                 frozen_state_dicts: Optional[Dict[str, Dict[str, torch.Tensor]]]):
         self.config = config
         self.device = resolve_device(device)
         self.input_size = input_size or config.size
-        self.fan_input_size = fan_input_size
         self._seed = seed
-        self._use_lpips, self._use_arcface = use_lpips, use_arcface
-        self._use_fan = config.hmap_loss_lambda > 0 if use_fan is None else use_fan
-        if self._use_fan and (fan_input_size < 64 or fan_input_size % 64):
-            # The stem and the depth-4 hourglass halve the input six times.
-            raise ValueError(f"fan_input_size {fan_input_size} must be a multiple of 64 px")
         self._frozen_state_dicts = frozen_state_dicts or {}
-        self.state = self._create_state(DTYPES[config.compute_dtype], seed)
         # Host RNG for the PPL subset choice, drawn at every PPL iteration.
         self._host_rng = np.random.RandomState(seed)
         self._copy_stream: Optional[torch.cuda.Stream] = None
@@ -85,76 +70,54 @@ class Trainer:
         self._last_r1 = zero
         self._last_greg = {"g_reg": zero, "path_length": zero}
 
-    def _create_state(self, dtype: torch.dtype, seed: int) -> TrainState:
-        config = self.config
-        models = FaceManipulator.create(
-            size=config.size, style_dim=config.latent, n_mlp=config.n_mlp,
-            channel_multiplier=config.channel_multiplier,
-            w_plus_layers=config.w_plus_encoder_layer_num, input_size=self.input_size,
-            width_mult=config.width_mult, dtype=dtype, device=self.device, seed=seed,
-        )
-        d_kw = dict(size=config.size, channel_multiplier=config.channel_multiplier,
-                    width_mult=config.width_mult, dtype=dtype)
-        frozen = {}
+    def _frozen_nets(self, dtype: torch.dtype, use_lpips: bool, use_arcface: bool,
+                     use_fan: bool = False) -> Dict[str, torch.nn.Module]:
+        """LPIPS (seed + 3), ArcFace (seed + 4) and FAN (seed + 5) as asked,
+        with the weights of ``frozen_state_dicts`` where it has them, frozen
+        in eval mode on the device."""
+        frozen: Dict[str, torch.nn.Module] = {}
         with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(seed + 1)
-            d = Discriminator(**d_kw)
-            torch.manual_seed(seed + 2)
-            d_edit = Discriminator(**d_kw)
-            if self._use_lpips:
-                torch.manual_seed(seed + 3)
+            if use_lpips:
+                torch.manual_seed(self._seed + 3)
                 frozen["lpips"] = LPIPS(dtype=dtype)
-            if self._use_arcface:
+            if use_arcface:
                 # ArcFace sees the generated image grayscale and 2x pooled.
-                torch.manual_seed(seed + 4)
-                frozen["arcface"] = ResNetFace18(input_size=config.size // 2, dtype=dtype)
-            if self._use_fan:
-                torch.manual_seed(seed + 5)
+                torch.manual_seed(self._seed + 4)
+                frozen["arcface"] = ResNetFace18(input_size=self.config.size // 2, dtype=dtype)
+            if use_fan:
+                torch.manual_seed(self._seed + 5)
                 frozen["fan"] = FAN(dtype=dtype)
         for name, net in frozen.items():
             if name in self._frozen_state_dicts:
                 net.load_state_dict(self._frozen_state_dicts[name])
             frozen[name] = net.requires_grad_(False).eval().to(self.device)
-        return TrainState.create(config, models, d.to(self.device), d_edit.to(self.device),
-                                 fan_input_size=self.fan_input_size, **frozen)
+        return frozen
 
-    def float64_state(self) -> TrainState:
-        """A state whose models, discriminators and loss networks hold this
-        state's parameters (float32, cast at use) and compute in float64.
-        On the CPU or under ``plain_versions()`` its steps run the plain path
-        with no float32 step: the exact reference that the chip smoke test
-        and the card tests hold float32 gradients against.  Not for
-        training: the kernels take float32 and bfloat16 only."""
-        ref = self._create_state(torch.float64, self._seed)
-        st = self.state
-        for dst, src in ((ref.models, st.models), (ref.d, st.d), (ref.d_edit, st.d_edit),
-                         (ref.lpips, st.lpips), (ref.arcface, st.arcface), (ref.fan, st.fan)):
-            if dst is not None:
-                dst.load_state_dict(src.state_dict())
-        return ref
+    def _discriminators(self, dtype: torch.dtype, n: int, **kw) -> Tuple[Discriminator, ...]:
+        """``n`` discriminators at the configuration's size from seeds
+        seed + 1, seed + 2, ..., on the device."""
+        config = self.config
+        out = []
+        with torch.random.fork_rng(devices=[]):
+            for i in range(n):
+                torch.manual_seed(self._seed + 1 + i)
+                out.append(Discriminator(size=config.size,
+                                         channel_multiplier=config.channel_multiplier,
+                                         dtype=dtype, **kw).to(self.device))
+        return tuple(out)
 
-    def schedule(self, iter_idx: int, batch: int) -> Dict[str, Any]:
-        """The iteration's branch flags, whether the heatmap term fires, and
-        the PPL subset (consumes the host RNG at PPL iterations, as the JAX
-        trainer does)."""
+    def _ppl_schedule(self, iter_idx: int, batch: int) -> Dict[str, Any]:
+        """The DS, R1 and PPL flags and the PPL subset (consumes the host RNG
+        at PPL iterations, as the JAX trainers do)."""
         cfg = self.config
-        ds_flag = cfg.is_ds_iter(iter_idx)
         will_g_reg = cfg.use_g_reg and iter_idx % cfg.g_reg_every == 0
         path_bsz = max(1, batch // cfg.path_reg_batch_shrink)
         if will_g_reg:
             idx = np.sort(self._host_rng.choice(batch, size=path_bsz, replace=False))
         else:
             idx = np.arange(path_bsz)
-        return dict(
-            ds_flag=ds_flag,
-            extreme=cfg.is_extreme_ds_iter(iter_idx),
-            use_edit=bool(ds_flag and cfg.use_separate_d),
-            do_r1=iter_idx % cfg.d_reg_every == 0,
-            will_g_reg=will_g_reg,
-            apply_hmap=bool(self.state.fan is not None and cfg.hmap_loss_lambda > 0
-                            and iter_idx > cfg.hmap_iter_thres),
-            ppl_idx=idx,
-        )
+        return dict(ds_flag=cfg.is_ds_iter(iter_idx), do_r1=iter_idx % cfg.d_reg_every == 0,
+                    will_g_reg=will_g_reg, ppl_idx=idx)
 
     def iteration_generators(self, iter_idx: int) -> Tuple[torch.Generator, ...]:
         """(d, g, ppl) noise generators of one iteration, from (seed, iter)."""
@@ -185,6 +148,123 @@ class Trainer:
         for t in staged:
             t.record_stream(consumer)
         return staged
+
+    # ---------------- checkpoints --------------------------------------------
+
+    def _modules(self) -> Dict[str, torch.nn.Module]:
+        raise NotImplementedError
+
+    def _meta(self) -> Dict[str, Any]:
+        raise NotImplementedError
+
+    def save_checkpoint(self, ckpt_dir: str, step: int) -> str:
+        """Write ``{step:06d}.pt`` and its ``.json`` meta file into
+        ``ckpt_dir``; returns the checkpoint's path.  The file appears whole
+        or not at all (written aside, then renamed)."""
+        st = self.state
+        ckpt: Dict[str, Any] = {k: m.state_dict() for k, m in self._modules().items()}
+        ckpt.update({k: getattr(st, k).state_dict() for k in self.OPTIMIZERS
+                     if getattr(st, k) is not None})
+        ckpt["mean_path_length"] = st.mean_path_length
+        if hasattr(st, "step"):
+            ckpt["step"] = st.step
+        os.makedirs(ckpt_dir, exist_ok=True)
+        path = os.path.join(ckpt_dir, f"{step:06d}.pt")
+        torch.save(ckpt, path + ".tmp")
+        os.replace(path + ".tmp", path)
+        with open(os.path.join(ckpt_dir, f"{step:06d}.json"), "w") as f:
+            json.dump({"step": step, **self._meta()}, f)
+        return path
+
+    def load_checkpoint(self, ckpt_dir: str, step: int) -> None:
+        """Load ``{step:06d}.pt`` into this trainer's state, in place."""
+        st = self.state
+        # The Adam step counts stay host tensors, as a fresh optimizer keeps them.
+        ckpt = torch.load(os.path.join(ckpt_dir, f"{step:06d}.pt"), map_location="cpu",
+                          weights_only=True)
+        for k, m in self._modules().items():
+            m.load_state_dict(ckpt[k])
+        for k in self.OPTIMIZERS:
+            if getattr(st, k) is not None:
+                getattr(st, k).load_state_dict(ckpt[k])
+        if hasattr(st, "step"):
+            st.step = int(ckpt["step"])
+        st.mean_path_length = ckpt["mean_path_length"].to(self.device)
+
+
+class Trainer(TrainerBase):
+    """Builds the models, the frozen loss networks and the train state, and
+    runs iterations on ``device`` (``cuda`` unless the caller passes
+    another).  ``frozen_state_dicts`` may hold reference-layout state dicts
+    for ``lpips``, ``arcface`` and ``fan``, which replace their random
+    weights.  ``use_fan`` None builds FAN when ``hmap_loss_lambda > 0``;
+    it takes its input at ``fan_input_size`` (256 for the pretrained
+    2DFAN-4; a multiple of 64 px)."""
+
+    OPTIMIZERS = OPTIMIZERS
+
+    def __init__(
+        self,
+        config: TrainConfig,
+        seed: int = 0,
+        use_lpips: bool = True,
+        use_arcface: bool = True,
+        use_fan: Optional[bool] = None,
+        fan_input_size: int = 256,
+        device=None,
+        input_size: Optional[int] = None,
+        frozen_state_dicts: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
+    ):
+        super().__init__(config, seed, device, input_size, frozen_state_dicts)
+        self.fan_input_size = fan_input_size
+        self._use_lpips, self._use_arcface = use_lpips, use_arcface
+        self._use_fan = config.hmap_loss_lambda > 0 if use_fan is None else use_fan
+        if self._use_fan and (fan_input_size < 64 or fan_input_size % 64):
+            # The stem and the depth-4 hourglass halve the input six times.
+            raise ValueError(f"fan_input_size {fan_input_size} must be a multiple of 64 px")
+        self.state = self._create_state(DTYPES[config.compute_dtype], seed)
+
+    def _create_state(self, dtype: torch.dtype, seed: int) -> TrainState:
+        config = self.config
+        models = FaceManipulator.create(
+            size=config.size, style_dim=config.latent, n_mlp=config.n_mlp,
+            channel_multiplier=config.channel_multiplier,
+            w_plus_layers=config.w_plus_encoder_layer_num, input_size=self.input_size,
+            width_mult=config.width_mult, dtype=dtype, device=self.device, seed=seed,
+        )
+        d, d_edit = self._discriminators(dtype, 2, width_mult=config.width_mult)
+        frozen = self._frozen_nets(dtype, self._use_lpips, self._use_arcface, self._use_fan)
+        return TrainState.create(config, models, d, d_edit, fan_input_size=self.fan_input_size,
+                                 **frozen)
+
+    def float64_state(self) -> TrainState:
+        """A state whose models, discriminators and loss networks hold this
+        state's parameters (float32, cast at use) and compute in float64.
+        On the CPU or under ``plain_versions()`` its steps run the plain path
+        with no float32 step: the exact reference that the chip smoke test
+        and the card tests hold float32 gradients against.  Not for
+        training: the kernels take float32 and bfloat16 only."""
+        ref = self._create_state(torch.float64, self._seed)
+        st = self.state
+        for dst, src in ((ref.models, st.models), (ref.d, st.d), (ref.d_edit, st.d_edit),
+                         (ref.lpips, st.lpips), (ref.arcface, st.arcface), (ref.fan, st.fan)):
+            if dst is not None:
+                dst.load_state_dict(src.state_dict())
+        return ref
+
+    def schedule(self, iter_idx: int, batch: int) -> Dict[str, Any]:
+        """The iteration's branch flags, whether the heatmap term fires, and
+        the PPL subset (consumes the host RNG at PPL iterations, as the JAX
+        trainer does)."""
+        cfg = self.config
+        s = self._ppl_schedule(iter_idx, batch)
+        return dict(
+            s,
+            extreme=cfg.is_extreme_ds_iter(iter_idx),
+            use_edit=bool(s["ds_flag"] and cfg.use_separate_d),
+            apply_hmap=bool(self.state.fan is not None and cfg.hmap_loss_lambda > 0
+                            and iter_idx > cfg.hmap_iter_thres),
+        )
 
     def train_iteration(self, iter_idx: int, photo, render, ref) -> Dict[str, Any]:
         """One iteration on NHWC batches (uint8, or float in [-1, 1]; numpy,
@@ -228,42 +308,11 @@ class Trainer:
                 "g_ema": st.g_ema}
         return {k: m for k, m in mods.items() if m is not None}
 
-    def save_checkpoint(self, ckpt_dir: str, step: int) -> str:
-        """Write ``{step:06d}.pt`` and its ``.json`` meta file into
-        ``ckpt_dir``; returns the checkpoint's path.  The file appears whole
-        or not at all (written aside, then renamed)."""
-        st = self.state
-        ckpt: Dict[str, Any] = {k: m.state_dict() for k, m in self._modules().items()}
-        ckpt.update({k: getattr(st, k).state_dict() for k in OPTIMIZERS
-                     if getattr(st, k) is not None})
-        ckpt["step"] = st.step
-        ckpt["mean_path_length"] = st.mean_path_length
-        os.makedirs(ckpt_dir, exist_ok=True)
-        path = os.path.join(ckpt_dir, f"{step:06d}.pt")
-        torch.save(ckpt, path + ".tmp")
-        os.replace(path + ".tmp", path)
-        meta = {
-            "step": step,
+    def _meta(self) -> Dict[str, Any]:
+        return {
             "tsr_encode": self.config.tsr_encode,
             "use_tanh": self.config.use_tanh,
             "sliced_layer": self.config.w_plus_sliced_layer,
             "size": self.config.size,
             "input_size": self.input_size,
         }
-        with open(os.path.join(ckpt_dir, f"{step:06d}.json"), "w") as f:
-            json.dump(meta, f)
-        return path
-
-    def load_checkpoint(self, ckpt_dir: str, step: int) -> None:
-        """Load ``{step:06d}.pt`` into this trainer's state, in place."""
-        st = self.state
-        # The Adam step counts stay host tensors, as a fresh optimizer keeps them.
-        ckpt = torch.load(os.path.join(ckpt_dir, f"{step:06d}.pt"), map_location="cpu",
-                          weights_only=True)
-        for k, m in self._modules().items():
-            m.load_state_dict(ckpt[k])
-        for k in OPTIMIZERS:
-            if getattr(st, k) is not None:
-                getattr(st, k).load_state_dict(ckpt[k])
-        st.step = int(ckpt["step"])
-        st.mean_path_length = ckpt["mean_path_length"].to(self.device)

@@ -7,6 +7,11 @@ partitions become optimizer parameter lists: one Adam for G plus the
 encoders whose ``*_train`` flag is set (the others get no update, as optax's
 ``set_to_zero`` leaves them), one for D and one for D_edit.  Adam takes the
 lazy-regularisation ratio r: lr * r, betas (0**r, 0.99**r), eps 1e-8.
+
+``TrainState2`` is the 2-encoder scheme's (the state dict of
+``fm3dgan/train/loop2.py:121-146``): one Adam over G and both encoders, one
+for D and one for D_ffhq, which exists even where no FFHQ dual supervision
+runs, so that every checkpoint has one shape.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ import torch.nn as nn
 
 from fm3dgan_torch.models.discriminator import Discriminator
 from fm3dgan_torch.models.generator import Generator
-from fm3dgan_torch.pipeline.forward import FaceManipulator
+from fm3dgan_torch.pipeline.forward import FaceManipulator, TwoEncoderModels
 from fm3dgan_torch.train.config import TrainConfig
 
 G_ENC_KEYS = ("g", "e_tsr", "e_w", "e_w_plus")
@@ -95,4 +100,48 @@ class TrainState:
             arcface=arcface,
             fan=fan,
             fan_input_size=fan_input_size,
+        )
+
+
+def g2_modules(models: TwoEncoderModels) -> Dict[str, nn.Module]:
+    """The partitions the 2-encoder G steps train: G and both encoders."""
+    return {"g": models.generator, "tensor_encoder": models.tensor_encoder,
+            "modulation_encoder": models.modulation_encoder}
+
+
+@dataclasses.dataclass
+class TrainState2:
+    """Everything a 2-encoder iteration reads and updates (in place);
+    ``lpips`` and ``arcface`` are the frozen loss networks, None where the G
+    steps go without their term."""
+
+    models: TwoEncoderModels
+    d: Discriminator
+    d_ffhq: Discriminator
+    g_ema: Generator
+    g_opt: torch.optim.Adam
+    d_opt: torch.optim.Adam
+    d_ffhq_opt: torch.optim.Adam
+    mean_path_length: torch.Tensor
+    lpips: Optional[nn.Module] = None
+    arcface: Optional[nn.Module] = None
+
+    @classmethod
+    def create(cls, config: TrainConfig, models: TwoEncoderModels, d: Discriminator,
+               d_ffhq: Discriminator, lpips: Optional[nn.Module] = None,
+               arcface: Optional[nn.Module] = None) -> "TrainState2":
+        g_ema = copy.deepcopy(models.generator)
+        g_ema.requires_grad_(False)
+        params = [p for _, _, p in named_params(g2_modules(models))]
+        return cls(
+            models=models,
+            d=d,
+            d_ffhq=d_ffhq,
+            g_ema=g_ema,
+            g_opt=_adam(params, config.lr, config.g_reg_ratio),
+            d_opt=make_d_optimizer(config, d),
+            d_ffhq_opt=make_d_optimizer(config, d_ffhq),
+            mean_path_length=torch.zeros((), device=models.device),
+            lpips=lpips,
+            arcface=arcface,
         )

@@ -104,10 +104,9 @@ def _active_d(state: TrainState, use_edit: bool):
 # ---------------- D step -----------------------------------------------------
 
 
-def d_grads_from_fake(state: TrainState, fake, ref, use_edit: bool) -> Tuple[Grads, Dict]:
-    """The D loss and its gradients on a generated batch that carries no
-    graph (shared by the D step and the shared iteration)."""
-    d, _ = _active_d(state, use_edit)
+def d_loss_grads(d: nn.Module, fake, ref) -> Tuple[Grads, Dict]:
+    """The logistic loss of discriminator ``d`` on a generated batch that
+    carries no graph against a real one, and its gradients."""
     out_pred = d(fake)
     ref_pred = d(ref)
     loss = d_logistic_loss(ref_pred, out_pred)
@@ -115,6 +114,20 @@ def d_grads_from_fake(state: TrainState, fake, ref, use_edit: bool) -> Tuple[Gra
     metrics = {"d": loss.detach(), "ref_score": ref_pred.float().mean().detach(),
                "out_score": out_pred.float().mean().detach()}
     return grads, metrics
+
+
+def r1_grads(d: nn.Module, ref, config: TrainConfig) -> Tuple[Grads, Dict]:
+    """Lazy R1 on discriminator ``d``, weighted r1/2 * R1 * d_reg_every,
+    and its gradients."""
+    r1 = d_r1_penalty(d, ref)
+    weighted = config.r1 / 2.0 * r1 * config.d_reg_every
+    return _grads_by_name(named_params({"d": d}), weighted), {"r1": r1.detach()}
+
+
+def d_grads_from_fake(state: TrainState, fake, ref, use_edit: bool) -> Tuple[Grads, Dict]:
+    """The D loss and its gradients on a generated batch that carries no
+    graph (shared by the D step and the shared iteration)."""
+    return d_loss_grads(_active_d(state, use_edit)[0], fake, ref)
 
 
 def _apply_d(state: TrainState, use_edit: bool, grads: Grads) -> None:
@@ -136,10 +149,7 @@ def d_step(state, config, photo, render, ref, use_edit, noise_generator=None) ->
 
 
 def d_reg_step_grads(state: TrainState, config: TrainConfig, ref, use_edit: bool):
-    d, _ = _active_d(state, use_edit)
-    r1 = d_r1_penalty(d, ref)
-    weighted = config.r1 / 2.0 * r1 * config.d_reg_every
-    return _grads_by_name(named_params({"d": d}), weighted), {"r1": r1.detach()}
+    return r1_grads(_active_d(state, use_edit)[0], ref, config)
 
 
 def d_reg_step(state, config, ref, use_edit) -> Dict:

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from fm3dgan_torch.tools import common
 from fm3dgan_torch.tools import train_3_encoder as cli
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -123,10 +124,10 @@ def test_cli_divergence_guard_counts_lines_across_early_flushes(tmp_path):
 def test_divergence_count_resets_on_a_healthy_line():
     bad, good = {"g": float("nan"), "l1": 1.0}, {"g": 1.0, "l1": 1.0}
     huge = {"g": 1.0, "l1": 2e6}
-    assert cli.count_diverged(0, [bad, huge, bad], 1e6) == 3
-    assert cli.count_diverged(3, [bad, good, bad], 1e6) == 1
-    assert cli.count_diverged(2, [good], 1e6) == 0
-    assert cli.count_diverged(1, [bad, huge], 0.0) == 0  # threshold 0: the guard is off
+    assert common.count_diverged(0, [bad, huge, bad], 1e6) == 3
+    assert common.count_diverged(3, [bad, good, bad], 1e6) == 1
+    assert common.count_diverged(2, [good], 1e6) == 0
+    assert common.count_diverged(1, [bad, huge], 0.0) == 0  # threshold 0: the guard is off
 
 
 def test_cli_writes_sample_grids_eval_lines_and_the_heatmap_loss(tmp_path):

@@ -15,8 +15,9 @@ import pytest
 import torch
 
 from fm3dgan_torch import ops
-from fm3dgan_torch.pipeline import FaceManipulator, forward_3_encoder
-from fm3dgan_torch.train import TrainConfig, Trainer, steps
+from fm3dgan_torch.pipeline import FaceManipulator, TwoEncoderModels, forward_2_encoder, forward_3_encoder
+from fm3dgan_torch.train import TrainConfig, Trainer, Trainer2, TrainState2, steps
+from fm3dgan_torch.train import steps_2encoder as steps2
 
 K4 = ops.make_kernel([1, 3, 3, 1])
 UP_TAPS = (0.25, 0.75, 0.75, 0.25)
@@ -714,3 +715,170 @@ def test_eval_hook_scores_through_kernels_match_plain_on_card(cuda_device):
         assert np.isfinite(v), (k, v)
         rtol = 1e-3 if k == "edit_fid" else 1e-4
         assert abs(got[k] - v) <= rtol * abs(v) + 1e-6, (k, got[k], v)
+
+
+# ---------------- the 2-encoder scheme ----------------------------------------
+
+CO_MODS = (None, "Multiplication", "Concatenation", "Tensor Transform")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("co_mod", CO_MODS)
+def test_small_2encoder_forward_on_card_matches_cpu(cuda_device, co_mod):
+    """``forward_2_encoder`` of a size-16 stack (128 px inputs, width 1/16)
+    with the same seeded weights: the kernel path on the card against the
+    plain path on the CPU and on the card, with a size-16 generator's
+    launch counts."""
+    kw = dict(size=16, co_modulation=co_mod, latent=32, input_size=128, width_mult=1 / 16, seed=5)
+    m_gpu = TwoEncoderModels.create(**kw, device=cuda_device)
+    m_cpu = TwoEncoderModels.create(**kw, device="cpu")
+    gen = torch.Generator().manual_seed(6)
+    photo, render = (torch.rand(2, 128, 128, 3, generator=gen) * 2 - 1 for _ in range(2))
+    ops.reset_launches()
+    got = forward_2_encoder(m_gpu, photo, render).cpu()
+    assert ops.launch_counts() == {"blur": 2, "upsample2x": 2, "fused_leaky_relu": 5,
+                                   "fused_leaky_relu_bwd": 0, "downsample2x": 0}
+    torch.testing.assert_close(got, forward_2_encoder(m_cpu, photo, render), atol=1e-4, rtol=0)
+    ops.reset_launches()
+    with ops.plain_versions():
+        plain = forward_2_encoder(m_gpu, photo, render).cpu()
+    assert not any(ops.launch_counts().values()), ops.launch_counts()
+    torch.testing.assert_close(got, plain, atol=1e-4, rtol=0)
+
+
+TINY_TRAIN2 = TrainConfig(size=16, latent=32, rec_face_reg_loss_lambda=0.0,
+                          ds_face_reg_loss_lambda=0.0, ep_face_reg_loss_lambda=0.0)
+
+
+def _small_state2(device, dtype=torch.float32):
+    """A Tensor Transform TrainState2 of size 16 (128 px inputs, width 1/16)
+    with LPIPS and ArcFace, from seeds: the same weights on any device."""
+    from fm3dgan_torch.models import LPIPS, Discriminator, ResNetFace18
+
+    models = TwoEncoderModels.create(size=16, co_modulation="Tensor Transform", latent=32,
+                                     input_size=128, width_mult=1 / 16, dtype=dtype,
+                                     device=device, seed=11)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(12)
+        d, d_ffhq = (Discriminator(size=16, width_mult=1 / 16, dtype=dtype) for _ in range(2))
+        torch.manual_seed(13)
+        lpips, arcface = LPIPS(dtype=dtype), ResNetFace18(input_size=8, dtype=dtype)
+    lpips, arcface = (n.requires_grad_(False).eval().to(device) for n in (lpips, arcface))
+    return TrainState2.create(TINY_TRAIN2, models, d.to(device), d_ffhq.to(device), lpips=lpips,
+                              arcface=arcface)
+
+
+def _all_grads2(st, photo, render, ref, ffhq, ppl):
+    cfg, enc = TINY_TRAIN2, "Render Image"
+    return {
+        "d": steps2.d_step_grads(st, cfg, photo, render, ref, enc)[0],
+        "r1": steps2.d_reg_step_grads(st, cfg, ref)[0],
+        "g": steps2.g_step_grads(st, cfg, photo, render, ref, enc, True)[0],
+        "ppl": steps2.g_reg_step_grads(st, cfg, photo[:2], render[:2], enc, ppl_noise=ppl)[0],
+        "d_ffhq": steps2.d_ffhq_step_grads(st, cfg, photo, render, ffhq, enc)[0],
+        "r1_ffhq": steps2.d_ffhq_reg_step_grads(st, cfg, ffhq)[0],
+        "g_ffhq": steps2.g_ffhq_ds_step_grads(st, cfg, photo, render, ref, enc)[0],
+    }
+
+
+@pytest.mark.gpu
+def test_small_2encoder_training_grads_through_kernels_match_plain_on_card(cuda_device):
+    """Every 2-encoder step's gradients of a size-16 Tensor Transform state
+    with LPIPS and ArcFace on the card: the kernel path (all five kernels
+    launch) against the plain path (none launches), same seeded weights and
+    fixed noise, each tensor held to ``chip_smoke.hold_gradient`` with the
+    CPU's float64 run as the exact reference.  cuDNN is off, as in the
+    3-encoder G step's card test (its float32 gradients are much further off
+    float64 at these widths); the kernels launch all the same.  Against the
+    CPU's float32 path the card's own convolutions already differ: the D
+    step's ``convs.0.1.bias`` follows the generated batch, and the card's
+    was 1.5e-4 from float64 where the CPU's was within 1e-4."""
+    from chip_smoke import hold_gradient
+
+    photo, render, ref, ppl = _train_inputs(15)
+    ffhq = torch.from_numpy(np.random.RandomState(16).uniform(-1, 1, (4, 3, 16, 16)).astype(np.float32))
+    inputs = (photo, render, ref, ffhq, ppl)
+    on_card = [t.to(cuda_device) for t in inputs]
+    with torch.backends.cudnn.flags(enabled=False, allow_tf32=False):
+        ops.reset_launches()
+        got = _all_grads2(_small_state2(cuda_device), *on_card)
+        assert all(v > 0 for v in ops.launch_counts().values()), ops.launch_counts()
+        ops.reset_launches()
+        with ops.plain_versions():
+            want = _all_grads2(_small_state2(cuda_device), *on_card)
+        assert not any(ops.launch_counts().values()), ops.launch_counts()
+    exact = _all_grads2(_small_state2("cpu", torch.float64), *(t.double() for t in inputs))
+    bad = []
+    for step in exact:
+        for part, tensors in exact[step].items():
+            part_max = max(float(e.abs().max()) for e in tensors.values())
+            for name, e in tensors.items():
+                ok, rel = hold_gradient(got[step][part][name].cpu(), want[step][part][name].cpu(),
+                                        e, part_max)
+                if not ok:
+                    bad.append((step, part, name, rel))
+    assert not bad, bad
+
+
+@pytest.mark.gpu
+def test_trainer2_ffhq_iteration_through_kernels_matches_plain_on_card(cuda_device):
+    """A full-width ``Trainer2`` (Tensor Transform, FFHQ dual supervision,
+    128 px in and out, batch 2) on the card, cuDNN's deterministic
+    algorithms: an FFHQ-DS iteration with R1 on both discriminators and PPL
+    through the kernels (all five launch) and, on a second trainer of the
+    same seed, through the plain versions (none launches): the same losses
+    within 1e-5 relative, and the same weights but for at most one element in
+    ten thousand that Adam's first step sent the other way."""
+    cfg = TrainConfig(size=128, d_reg_every=1, g_reg_every=1)
+    rng = np.random.RandomState(17)
+    photo, render, ffhq = (rng.randint(0, 256, (2, 128, 128, 3)).astype(np.uint8) for _ in range(3))
+    runs = {}
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True, allow_tf32=False):
+        for path in ("kernel", "plain"):
+            t = Trainer2(cfg, seed=3, co_modulation="Tensor Transform", ds_dataset_type="FFHQ",
+                         device=cuda_device)
+            ops.reset_launches()
+            if path == "plain":
+                with ops.plain_versions():
+                    m = t.train_iteration(1, photo, render, photo, ffhq_ref=ffhq)
+            else:
+                m = t.train_iteration(1, photo, render, photo, ffhq_ref=ffhq)
+            runs[path] = (t, m, ops.launch_counts())
+    (tk, mk, ck), (tp, mp, cp) = runs["kernel"], runs["plain"]
+    assert all(v > 0 for v in ck.values()), ck
+    assert not any(cp.values()), cp
+    for k in ("d_ffhq", "r1_ffhq", "g_ffhq", "face_id_ffhq", "d", "r1", "g", "lpips", "l1",
+              "face_id", "face_reg", "g_reg"):
+        assert np.isfinite(float(mk[k])), k
+        torch.testing.assert_close(float(mk[k]), float(mp[k]), rtol=1e-5, atol=0)
+    n_apart = n = 0
+    for (name, ma), mb in zip(tk._modules().items(), tp._modules().values()):
+        lr = cfg.lr * (cfg.d_reg_ratio if name.startswith("d") else cfg.g_reg_ratio)
+        for pa, pb in zip(ma.parameters(), mb.parameters()):
+            n_apart += _apart(pa, pb, 2 * lr)  # two G updates in the iteration
+            n += pa.numel()
+    assert n_apart <= 1e-4 * n, (n_apart, n)
+
+
+@pytest.mark.gpu
+def test_training_2encoder_cli_runs_two_iterations_on_card(cuda_device, tmp_path):
+    """``python -m fm3dgan_torch.tools.train_2_encoder --fake_data`` on the
+    card (its default device), Tensor Transform, size 16: two logged
+    iterations, finite."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cmd = [sys.executable, "-m", "fm3dgan_torch.tools.train_2_encoder", "--fake_data",
+           "--co_mod", "Tensor Transform", "--size", "16", "--input_size", "128",
+           "--rec_batch", "2", "--ds_batch", "2", "--ds_face_reg_loss_lambda", "0",
+           "--training_iters", "2", "--log_every", "1", "--exp_dir", str(tmp_path)]
+    proc = subprocess.run(cmd, cwd=repo, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    with open(tmp_path / "training_log.jsonl") as f:
+        lines = [json.loads(line) for line in f]
+    assert [line["iter"] for line in lines] == [0, 1]
+    for line in lines:
+        assert all(np.isfinite(v) for v in line.values() if isinstance(v, float)), line

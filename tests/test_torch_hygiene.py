@@ -23,7 +23,7 @@ from fm3dgan_torch.models import (
 )
 from fm3dgan_torch.models.generator import channel_table
 from fm3dgan_torch.pipeline import FaceManipulator
-from fm3dgan_torch.train import TrainConfig, Trainer
+from fm3dgan_torch.train import TrainConfig, Trainer, Trainer2
 from test_compat import _synth_generator_sd
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -46,6 +46,8 @@ def test_importing_the_port_loads_no_jax():
         "import fm3dgan_torch.data, fm3dgan_torch.data.native, fm3dgan_torch.tools.train_3_encoder\n"
         "import fm3dgan_torch.eval, fm3dgan_torch.eval.visual_eval, fm3dgan_torch.train.eval_hook\n"
         "import fm3dgan_torch.models.fan_landmark, fm3dgan_torch.models.inception\n"
+        "import fm3dgan_torch.train.loop2, fm3dgan_torch.train.steps_2encoder\n"
+        "import fm3dgan_torch.tools.train_2_encoder, fm3dgan_torch.tools.common\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
     )
@@ -89,6 +91,13 @@ def test_trainer_without_device_raises_without_a_card():
         pytest.skip("a CUDA device is present: the default device is valid")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Trainer(TrainConfig(size=16, latent=32, width_mult=1 / 16), input_size=128)
+
+
+def test_trainer2_without_device_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer2(TrainConfig(size=16), co_modulation="Tensor Transform", input_size=128)
 
 
 def _randomized(sd, seed):
