@@ -12,7 +12,8 @@ Builds the hand-written CUDA kernels of ``fm3dgan_torch`` from
    call's time where one computes the same function, and its memory/compute
    bound; the kernel and the library call are also timed apart on the
    device (``device_ms``, a CUDA-graph replay) and on the host
-   (``host_us``);
+   (``host_us``); and, float32 only, at the shapes of one projector step
+   (batch 1: G's forward and its backward);
 2. path phase: ``FaceManipulator.create(size=256, input_size=256)`` with
    seeded random weights runs ``forward_3_encoder`` at batch 8 in float32
    through the kernels and through the plain versions, checks the output
@@ -74,7 +75,22 @@ Builds the hand-written CUDA kernels of ``fm3dgan_torch`` from
     (its ``main``) with fake data, Tensor Transform and FFHQ dual
     supervision, 6 iterations at 256 px with a checkpoint after iteration 3,
     then resumed from it: iteration 4's losses must equal the uninterrupted
-    run's to the bit (cuDNN's deterministic algorithms in both).
+    run's to the bit (cuDNN's deterministic algorithms in both);
+12. edit CLI phase, on the checkpoint of phase 7: ``python -m
+    fm3dgan_torch.tools.edit``'s ``main`` (1 photo x 32 renders, batches of
+    16, grids) in float32 and in bfloat16 (launches per batch, one
+    forward's); every PNG within 1 uint8 level of ``forward_3_encoder``
+    under ``plain_versions()`` in the same dtype; seconds, img/s end to end
+    and of the forward alone;
+13. projector phase: that checkpoint's EMA G (256 px, full width, batch 1,
+    seeded non-zero noise weights, LPIPS): the step-0 gradients to the
+    latent and every noise map held by :func:`hold_gradient`, 60 Adam
+    steps (LPIPS from step 30) and 10 L-BFGS steps kernel vs plain, PSNR
+    rising, ms per step and launches per step (all five kernels, as the
+    batch-1 kernel records' weights say);
+14. eval tools phase: PPL (64 pairs, LPIPS) and ``get_generator_styles``
+    kernel vs plain, then ``calc_inception`` on seeded PNGs and a 32-sample
+    ``fid`` run against its statistics, each through its ``main``.
 
 Prints one JSON line per measurement and per phase's seconds, the card's
 name and power limit, a ``{"kernels": [...]}`` summary, and last
@@ -86,7 +102,9 @@ does not build or launch, or when any check fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -121,6 +139,10 @@ TWO_ENC_CONFIGS = [(None, "Render Image"), (None, "Photo Image"), ("Multiplicati
 TWO_ENC_MODE = "Tensor Transform"  # the 2-encoder trainer's mode
 TWO_GRAD_BATCH = 8
 TWO_TRAIN_ITERS = 6
+EDIT_RENDERS, EDIT_BATCH = 32, 16  # the edit CLI: 1 photo x 32 renders, batches of 16
+PROJ_ADAM_STEPS, PROJ_LPIPS_START, PROJ_LBFGS_STEPS = 60, 30, 10
+PPL_SAMPLES = 64
+FID_SAMPLES = 32
 
 # (C, R): blur input [N, C, 2R+1, 2R+1] after each upsampling transposed conv.
 BLUR_SHAPES = [(512, 4), (512, 8), (512, 16), (512, 32), (256, 64), (128, 128)]
@@ -309,14 +331,21 @@ def _dtname(dtype) -> str:
     return str(dtype).split(".")[1]
 
 
-def _training_record(kernel, x, dtype, weight, got, ref32, fns, in_bytes, out_bytes, flops):
+# The path a kernel record's shapes come from -> the key of its launches per
+# iteration or step of that path.
+WEIGHT_KEYS = {"training": "launches_per_iteration", "projector": "launches_per_step"}
+
+
+def _training_record(kernel, x, dtype, weight, got, ref32, fns, in_bytes, out_bytes, flops,
+                     what="training"):
     """Check one training-shape launch against its plain version and time
     the kernel, the plain version and the library call (None: no single
     PyTorch call computes the function).  ``weight``: the launches of this
-    case in one training iteration without regulariser."""
+    case in one training iteration without regulariser, or in one step of
+    another path (``what``), kept under ``WEIGHT_KEYS[what]``."""
     kernel_fn, plain_fn, lib_fn = fns
-    rec = dict(kernel=kernel, what="training", shape=list(x.shape), dtype=_dtname(dtype),
-               launches_per_iteration=weight, **compare(got, ref32, dtype))
+    rec = dict(kernel=kernel, what=what, shape=list(x.shape), dtype=_dtname(dtype),
+               **{WEIGHT_KEYS[what]: weight}, **compare(got, ref32, dtype))
     rec.update(time_calls(kernel_fn, plain_fn, lib_fn, iters=20))
     rec["bound_ms"], rec["bound_by"] = bound(in_bytes, out_bytes, flops)
     emit(rec)
@@ -324,22 +353,28 @@ def _training_record(kernel, x, dtype, weight, got, ref32, fns, in_bytes, out_by
     return rec
 
 
-def training_kernel_phase(ops):
+def training_kernel_phase(ops, batch=TRAIN_BATCH, passes=(G_FWD, G_BWD, D_FWD, D_BWD),
+                          dtypes=(torch.float32, torch.bfloat16), what="training"):
     """Every kernel at every shape one training iteration without
     regulariser gives it, batch 16: K1 and K2 at G's and D's activation
     shapes, K3 at G's up-blur, D's blurs and every blur adjoint, K4 at the
-    ToRGB skip and K5 at its adjoint."""
+    ToRGB skip and K5 at its adjoint.  Another path's shapes: its ``batch``,
+    its G and D forward and backward ``passes`` per step (the shapes of a
+    network it does not run are left out), its ``dtypes``, the records
+    marked ``what``."""
+    G_FWD, G_BWD, D_FWD, D_BWD = passes  # noqa: N806
+    record = lambda *a: _training_record(*a, what=what)  # noqa: E731
     records = []
     k2d = ops.make_kernel([1, 3, 3, 1])
     k1d = [0.25, 0.75, 0.75, 0.25]
     kflip = k1d[::-1]
     gen = torch.Generator(device="cuda").manual_seed(1)
     rnd = lambda *shape: torch.randn(*shape, device="cuda", generator=gen)  # noqa: E731
-    b = TRAIN_BATCH
+    b = batch
     per_g = {(c, r): n for c, r, n in ACT_SHAPES}
-    per_d = {(c, r): n for c, r, n in D_ACT_SHAPES}
+    per_d = {(c, r): n for c, r, n in D_ACT_SHAPES} if D_FWD else {}
     act_shapes = sorted(set(per_g) | set(per_d), key=lambda s: (-s[1], s[0]))
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes:
         esize = torch.finfo(dtype).bits // 8
         for c, r in act_shapes:
             shape = (b, c, r, r) if r else (b, c)
@@ -348,13 +383,13 @@ def training_kernel_phase(ops):
             out = ops.fused_leaky_relu(x, bias)
             n = g.numel()
             n_g, n_d = per_g.get((c, r), 0), per_d.get((c, r), 0)
-            records.append(_training_record(
+            records.append(record(
                 "fused_leaky_relu", x, dtype, G_FWD * n_g + D_FWD * n_d, out,
                 ops.fused_leaky_relu_plain(x.float(), bias.to(dtype).float()),
                 (lambda: ops.fused_leaky_relu(x, bias),
                  lambda: ops.fused_leaky_relu_plain(x, bias), None),
                 n * esize + c * esize, n * esize, 4 * n))
-            records.append(_training_record(
+            records.append(record(
                 "fused_leaky_relu_bwd", g, dtype, G_BWD * n_g + D_BWD * n_d,
                 ops.fused_leaky_relu_bwd(g, out), ops.fused_leaky_relu_bwd_plain(g.float(), out),
                 (lambda: ops.fused_leaky_relu_bwd(g, out),
@@ -364,7 +399,7 @@ def training_kernel_phase(ops):
             x = rnd(b, 3, r, r).to(dtype)  # the ToRGB skip: [b, 3, R, R] -> 2R
             got = ops.upsample2x(x, k1d, (2, 1))
             wlib = torch.outer(torch.tensor(k1d), torch.tensor(k1d)).to("cuda", dtype).expand(3, 1, 4, 4)
-            records.append(_training_record(
+            records.append(record(
                 "upsample2x", x, dtype, G_FWD, got, ops.upsample2x_plain(x.float(), k1d, (2, 1)),
                 (lambda: ops.upsample2x(x, k1d, (2, 1)),
                  lambda: ops.upsample2x_plain(x, k1d, (2, 1)),
@@ -374,7 +409,7 @@ def training_kernel_phase(ops):
             got = ops.downsample2x(x, kflip, (1, 1))
             wlib = torch.flip(torch.outer(torch.tensor(kflip), torch.tensor(kflip)), (0, 1))
             wlib = wlib.to("cuda", dtype).expand(3, 1, 4, 4)
-            records.append(_training_record(
+            records.append(record(
                 "downsample2x", x, dtype, G_BWD, got,
                 ops.downsample2x_plain(x.float(), kflip, (1, 1)),
                 (lambda: ops.downsample2x(x, kflip, (1, 1)),
@@ -382,7 +417,7 @@ def training_kernel_phase(ops):
                  lambda: F.conv2d(x, wlib, stride=2, padding=1, groups=3)),
                 x.numel() * esize, got.numel() * esize, got.numel() * 16 * 2))
         blur_cases = []
-        for c, r in D_BLUR_SHAPES:
+        for c, r in (D_BLUR_SHAPES if D_FWD else ()):
             blur_cases += [((c, r), k2d, 2, D_FWD), ((c, r), k2d, 1, D_FWD),  # 3x3 conv, 1x1 skip
                            ((c, r + 1), k2d, 1, D_BWD), ((c, r - 1), k2d, 2, D_BWD)]  # adjoints
         for c, r in BLUR_SHAPES:
@@ -392,7 +427,7 @@ def training_kernel_phase(ops):
             x = rnd(b, c, r, r).to(dtype)
             got = ops.blur(x, k, (p, p))
             wlib = torch.flip(torch.as_tensor(k, device="cuda"), (0, 1)).expand(c, 1, 4, 4).to(dtype)
-            records.append(_training_record(
+            records.append(record(
                 "blur", x, dtype, weight, got, ops.blur_plain(x.float(), k, (p, p)),
                 (lambda: ops.blur(x, k, (p, p)), lambda: ops.blur_plain(x, k, (p, p)),
                  lambda: F.conv2d(x, wlib, padding=p, groups=c)),
@@ -779,8 +814,9 @@ def loss_net_phase(trainer, iteration_ms):
     return rec
 
 
-def cli_phase(ops):
-    """The training CLI as a user starts it (its ``main``): fake data, full
+def cli_phase(ops, root):
+    """The training CLI as a user starts it (its ``main``), in ``root``,
+    where it leaves its checkpoint (``run/ckpt``) for the tool phases: fake data, full
     width, 256 px, a checkpoint after iteration ``CLI_SAVE``; then a second
     run resumed from that checkpoint, whose iteration ``CLI_CHECK`` must give
     the D and G losses of the uninterrupted run within 1e-5 relative (only
@@ -801,9 +837,6 @@ def cli_phase(ops):
     from fm3dgan_torch.eval.fid import save_stats
     from fm3dgan_torch.tools import train_3_encoder as cli
 
-    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_cli")
-    shutil.rmtree(root, ignore_errors=True)
-    os.makedirs(root)
     stats = os.path.join(root, "real_stats.pkl")
     save_stats(stats, np.zeros(2048), np.eye(2048))
     first, resumed = os.path.join(root, "run"), os.path.join(root, "resumed")
@@ -866,7 +899,7 @@ def cli_phase(ops):
                 f"resumed iteration {CLI_CHECK} differs: {rec['resume_rel_diff']}")
     finally:
         torch.backends.cudnn.deterministic = False
-        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(resumed, ignore_errors=True)
     return rec
 
 
@@ -945,14 +978,14 @@ def eval_phase(ops, trainer):
     a seeded random InceptionV3 and the trainer's FAN as the heatmap scorer:
     one reconstruction batch of ``quant_eval_batch_size`` and one edit batch
     of ``EDIT_PHOTOS`` photos x 4 renders, FID against real statistics of
-    mean 0 and identity covariance.  A timed pass with cuDNN's default
-    algorithms (launches: only the forward kernels K1, K3 and K4), after the
-    kernel path and the plain path under the deterministic ones: each score
-    within 1e-4 of the plain path's, relative (FID 1e-3: the square root of
-    a singular product), plus 1e-6.  Also the pass without FID (its host
-    ``sqrtm``), the EMA forward's img/s, InceptionV3's ms on the edit batch,
-    and a ``get_val_sample_grid`` grid from both paths, equal within 1 in
-    uint8."""
+    mean 0 and identity covariance.  The kernel path, timed (launches: only
+    the forward kernels K1, K3 and K4), and the plain path, both under
+    cuDNN's deterministic algorithms: each score within 1e-4 of the plain
+    path's, relative (FID 1e-3: the square root of a singular product),
+    plus 1e-6.  Also a timed pass without FID (its host ``sqrtm``) with the
+    default algorithms, the EMA forward's img/s, InceptionV3's ms on the
+    edit batch, and a ``get_val_sample_grid`` grid from both paths, equal
+    within 1 in uint8."""
     import numpy as np
 
     from fm3dgan_torch.eval.visual_eval import get_val_sample_grid
@@ -976,7 +1009,12 @@ def eval_phase(ops, trainer):
     rec = dict(phase="eval", recon_images=n_rec, edit_images=4 * EDIT_PHOTOS, size=px)
     torch.backends.cudnn.deterministic = True
     try:
-        kernel = hook(0)  # also the warm-up of the timed pass
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        kernel = hook(0)
+        torch.cuda.synchronize()
+        rec["pass_s"] = time.perf_counter() - t0
+        rec["launches"] = ops.launch_counts()
         ops.reset_launches()
         with ops.plain_versions():
             plain = hook(0)
@@ -987,14 +1025,8 @@ def eval_phase(ops, trainer):
             grid_plain = get_val_sample_grid(ema_forward_fn(trainer), val_sets)
     finally:
         torch.backends.cudnn.deterministic = False
-    torch.cuda.synchronize()
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    rec["scores"] = hook(1)
-    torch.cuda.synchronize()
-    rec["pass_s"] = time.perf_counter() - t0
-    rec["launches"] = ops.launch_counts()
     real_stats, hook.real_stats = hook.real_stats, None  # the same pass without FID
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     hook(1)
     torch.cuda.synchronize()
@@ -1014,7 +1046,7 @@ def eval_phase(ops, trainer):
         rec["inception_ms"] = cuda_ms(lambda: inception(x), iters=3, warmup=1)[0]
     emit(rec)
     counts = rec["launches"]
-    require(all(math.isfinite(v) for k, v in rec["scores"].items()), f"eval scores {rec['scores']}")
+    require(all(math.isfinite(v) for v in kernel.values()), f"eval scores {kernel}")
     require(all(counts[k] > 0 for k in ("blur", "upsample2x", "fused_leaky_relu"))
             and counts["fused_leaky_relu_bwd"] == 0 and counts["downsample2x"] == 0,
             f"eval pass launches {counts}")
@@ -1280,6 +1312,318 @@ def two_encoder_cli_phase(ops):
     return rec
 
 
+# ---------------- the serving and checkpoint tools ----------------------------
+
+
+def _write_pngs(d, prefix, n, seed, px=256):
+    """``n`` seeded uint8 noise PNGs ``{prefix}{i}.png`` in ``d``."""
+    from PIL import Image
+
+    os.makedirs(d, exist_ok=True)
+    x = torch.randint(0, 256, (n, px, px, 3), generator=torch.Generator().manual_seed(seed),
+                      dtype=torch.uint8).numpy()
+    paths = [os.path.join(d, f"{prefix}{i}.png") for i in range(n)]
+    for path, img in zip(paths, x):
+        Image.fromarray(img).save(path)
+    return paths
+
+
+def _tool(module, *args):
+    """A tool's ``main`` (what ``python -m fm3dgan_torch.tools.<name>``
+    runs) on ``args`` in this process; (stdout, seconds)."""
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = module.main(list(args))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    require(rc == 0, f"{module.__name__} exited {rc}: {out.getvalue()[-2000:]}")
+    return out.getvalue(), seconds
+
+
+def edit_cli_phase(ops, root, ckpt_dir, step):
+    """The serving CLI on the CLI phase's checkpoint (EMA G, full width,
+    256 px): 1 photo x ``EDIT_RENDERS`` renders in batches of
+    ``EDIT_BATCH`` with grids through its ``main``, in float32 and then in
+    bfloat16 (launches per batch in each: one forward's, K3 6 / K4 6 / K1
+    13).  Every PNG within 1 uint8 level of ``forward_3_encoder`` under
+    ``plain_versions()`` in the same dtype.  Seconds end to end, img/s
+    against the forward alone."""
+    import numpy as np
+    from PIL import Image
+
+    from fm3dgan_torch.data.datasets import default_transform, load_image
+    from fm3dgan_torch.eval.visual_eval import tensor_to_image
+    from fm3dgan_torch.pipeline import forward_3_encoder
+    from fm3dgan_torch.tools import edit
+    from fm3dgan_torch.utils import build_manipulator_from_checkpoint
+
+    d = os.path.join(root, "edit")
+    photo = _write_pngs(d, "photo", 1, 51)
+    renders = _write_pngs(d, "render", EDIT_RENDERS, 52)
+    args = ["--ckpt_dir", ckpt_dir, "--step", str(step), "--photo", *photo, "--render", *renders,
+            "--batch", str(EDIT_BATCH), "--grid"]
+    outs = {name: os.path.join(d, name) for name in ("float32", "bfloat16")}
+    n_batches = -(-EDIT_RENDERS // EDIT_BATCH)
+    rec = dict(phase="edit_cli", pairs=EDIT_RENDERS, batch=EDIT_BATCH, size=256)
+    counts = {}
+    for name, out in outs.items():
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        rc = edit.main(args + ["--out_dir", out, "--dtype", name])
+        torch.cuda.synchronize()
+        rec[f"{name}_main_s"] = time.perf_counter() - t0
+        counts[name] = ops.launch_counts()
+        require(rc == 0, f"the edit CLI ({name}) exited {rc}")
+        torch.cuda.empty_cache()
+    rec["launches"] = counts
+    rec["launches_per_batch"] = {k: v // n_batches for k, v in counts["float32"].items()}
+    tf = default_transform(256)
+    p = np.stack([load_image(photo[0], tf)] * EDIT_BATCH)
+    r = np.stack([load_image(x, tf) for x in renders])
+    for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        models, meta = build_manipulator_from_checkpoint(ckpt_dir, step, device="cuda", dtype=dtype)
+        sliced = tuple(meta["sliced_layer"]) if meta.get("sliced_layer") else None
+
+        def fwd(i):
+            return forward_3_encoder(models, torch.from_numpy(p), torch.from_numpy(r[i:i + EDIT_BATCH]),
+                                     tsr_encode=meta["tsr_encode"], sliced_layer=sliced,
+                                     use_tanh=meta["use_tanh"])
+
+        with ops.plain_versions():
+            want = np.concatenate([tensor_to_image(fwd(i).float())
+                                   for i in range(0, EDIT_RENDERS, EDIT_BATCH)])
+        got = np.stack([np.asarray(Image.open(os.path.join(outs[name], f"photo0__render{i}.png")))
+                        for i in range(EDIT_RENDERS)])
+        rec[f"{name}_max_uint8_diff_vs_plain"] = int(np.abs(got.astype(np.int16) - want).max())
+        rec[f"{name}_grids"] = sum(f.endswith("_grid.png") for f in os.listdir(outs[name]))
+        if dtype == torch.float32:
+            with torch.no_grad():
+                ms = cuda_ms(lambda: fwd(0), iters=5, warmup=2)[0]
+            rec["forward_img_per_s"] = EDIT_BATCH / ms * 1e3
+        del models
+        torch.cuda.empty_cache()
+    rec["float32_main_img_per_s"] = EDIT_RENDERS / rec["float32_main_s"]
+    emit(rec)
+    for name in outs:
+        require(counts[name] == {k: n_batches * v for k, v in EXPECTED_LAUNCHES.items()},
+                f"{name} edit launches {counts[name]}, expected {n_batches} x {EXPECTED_LAUNCHES}")
+        require(rec[f"{name}_grids"] == EDIT_RENDERS, f"{name} grids: {rec[f'{name}_grids']}")
+        require(rec[f"{name}_max_uint8_diff_vs_plain"] <= 1,
+                f"{name} edits vs the plain forward: {rec[f'{name}_max_uint8_diff_vs_plain']}")
+    return rec
+
+
+def projector_launches(per_forward):
+    """One projector step's launches: G's forward (``per_forward``), and its
+    backward to the latent and the noise maps: K2 once per K1, the blur's
+    adjoint once per blur, K5 once per K4 (the ToRGB skip's adjoint)."""
+    return {"blur": 2 * per_forward["blur"], "upsample2x": per_forward["upsample2x"],
+            "fused_leaky_relu": per_forward["fused_leaky_relu"],
+            "fused_leaky_relu_bwd": per_forward["fused_leaky_relu"],
+            "downsample2x": per_forward["upsample2x"]}
+
+
+def projection_run_launches(per_step, evaluations):
+    """The launches of one ``optimize_projection`` run: ``evaluations``
+    evaluations of the loss and its gradient (one per Adam step; L-BFGS's
+    line search may take more), each ``per_step``, then G's forward of the
+    final image."""
+    return {k: evaluations * v + EXPECTED_LAUNCHES[k] for k, v in per_step.items()}
+
+
+def projector_phase(ops, ckpt_dir, step, per_step):
+    """The projector on the EMA G of the CLI phase's checkpoint (full width,
+    256 px, batch 1) with every noise weight set to a seeded non-zero value,
+    LPIPS with random weights, towards G's own image of a seeded z:
+
+    * the step-0 gradients of MSE + LPIPS to the latent and to every noise
+      map, through the kernels, under ``plain_versions()`` twice and in
+      float64, each held by :func:`hold_gradient`;
+    * ``PROJ_ADAM_STEPS`` Adam steps (LPIPS from ``PROJ_LPIPS_START``) and
+      ``PROJ_LBFGS_STEPS`` L-BFGS steps (LPIPS from the middle) through
+      ``optimize_projection``, kernel and plain paths under cuDNN's
+      deterministic algorithms: the loss curves agree within 1e-4
+      relative, PSNR rises, the plain runs launch nothing, and each kernel
+      run launches ``per_step`` (the kernel phase's weights) per evaluation
+      of the loss, plus one forward for the final image;
+    * ms per Adam step (cuDNN's default algorithms) and the launches per
+      step of that timed run, counted from 0 just before it."""
+    from fm3dgan_torch.eval import projector
+    from fm3dgan_torch.models import LPIPS, Generator
+    from fm3dgan_torch.nn.modulated import NoiseInjection
+    from fm3dgan_torch.tools.nets import lpips_net
+    from fm3dgan_torch.utils import build_manipulator_from_checkpoint
+
+    models, meta = build_manipulator_from_checkpoint(ckpt_dir, step, device="cuda")
+    g = models.generator
+    rng = torch.Generator().manual_seed(61)
+    with torch.no_grad():
+        for m in g.modules():
+            if isinstance(m, NoiseInjection):
+                m.weight.copy_(torch.rand(1, generator=rng) * 0.4 + 0.1)
+        target = g(torch.randn(1, g.style_dim, generator=rng).cuda(), randomize_noise=False)
+    lpips = lpips_net("cuda")
+    start = (projector.get_avg_w_latent(g, rng), g.make_noise(rng))
+    rec = dict(phase="projector", size=256, batch=1)
+
+    def grads(gen, lp, dtype):
+        latent = start[0].to(dtype).clone().requires_grad_(True)
+        noises = [n.to(dtype).clone().requires_grad_(True) for n in start[1]]
+        loss = projector.projection_loss(gen, target.to(dtype), latent, noises, lp, True,
+                                         projector.ProjectorConfig())
+        gs = torch.autograd.grad(loss, [latent, *noises])
+        return {"latent": gs[0], **{f"noise_{i}": x for i, x in enumerate(gs[1:])}}
+
+    def run(optimizer, steps, lpips_start, plain):
+        """``optimize_projection`` from ``start``; its result and its
+        launches, counted from 0."""
+        cfg = projector.ProjectorConfig(steps=steps, lr=0.1, optimizer=optimizer,
+                                        lpips_start_step=lpips_start)
+        ops.reset_launches()
+        with (ops.plain_versions() if plain else contextlib.nullcontext()):
+            out = projector.optimize_projection(g, target, *start, lpips_fn=lpips, config=cfg)
+        torch.cuda.synchronize()
+        return out, ops.launch_counts()
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        got = grads(g, lpips, torch.float32)
+        ops.reset_launches()
+        with ops.plain_versions():
+            want, again = grads(g, lpips, torch.float32), grads(g, lpips, torch.float32)
+            g64 = Generator(size=meta["size"], style_dim=meta["latent"],
+                            channel_multiplier=meta["channel_multiplier"],
+                            width_mult=meta["width_mult"], dtype=torch.float64).cuda().eval()
+            g64.load_state_dict(g.state_dict())
+            lp64 = LPIPS(dtype=torch.float64).cuda().eval().requires_grad_(False)
+            lp64.load_state_dict(lpips.state_dict())
+            exact = grads(g64, lp64, torch.float64)
+            del g64, lp64
+            torch.cuda.synchronize()
+        plain_launches = {"gradients": ops.launch_counts()}
+        part_max = max(float(e.abs().max()) for e in exact.values())
+        held, fails = {}, []
+        for name, e in exact.items():
+            ok, rel = hold_gradient(got[name], want[name], e, part_max)
+            held[name] = rel
+            if not ok or not torch.equal(want[name], again[name]):
+                fails.append(name)
+        rec["gradients"] = held
+        rec["noise_grad_max_abs"] = [float(got[f"noise_{i}"].abs().max())
+                                     for i in range(len(start[1]))]
+
+        curves = {}
+        for optimizer, steps, lpips_start in (("adam", PROJ_ADAM_STEPS, PROJ_LPIPS_START),
+                                              ("lbfgs", PROJ_LBFGS_STEPS, PROJ_LBFGS_STEPS // 2)):
+            kernel, launches = run(optimizer, steps, lpips_start, False)
+            plain, plain_launches[optimizer] = run(optimizer, steps, lpips_start, True)
+            # Each evaluation runs K2 as often; Adam evaluates once a step.
+            evaluations = launches["fused_leaky_relu_bwd"] // per_step["fused_leaky_relu_bwd"]
+            with torch.no_grad():
+                start_img = g(input_is_latent=True, latent_styles=[start[0]], noise=start[1])
+            curves[optimizer] = dict(
+                losses=kernel["losses"], plain_losses=plain["losses"],
+                max_rel_diff=max(abs(a - b) / abs(b) for a, b in zip(kernel["losses"], plain["losses"])),
+                psnr_start=projector.psnr(start_img, target),
+                psnr=projector.psnr(kernel["image"], target), launches=launches,
+                evaluations=evaluations, steps=steps)
+        rec["curves"] = curves
+    finally:
+        torch.backends.cudnn.deterministic = False
+    run("adam", 2, PROJ_LPIPS_START, False)  # warm-up of the default algorithms
+    t0 = time.perf_counter()
+    _, launches = run("adam", PROJ_ADAM_STEPS, PROJ_LPIPS_START, False)
+    rec["adam_ms_per_step"] = (time.perf_counter() - t0) / PROJ_ADAM_STEPS * 1e3
+    rec["adam_launches"] = launches
+    rec["launches_per_step"] = {k: (v - EXPECTED_LAUNCHES[k]) // PROJ_ADAM_STEPS
+                                for k, v in launches.items()}
+    rec["expected_launches_per_step"] = per_step
+    rec["plain_launches"] = plain_launches
+    emit(rec)
+    require(not fails, f"projector gradients outside their bar: {fails} {held}")
+    require(all(v > 0 for v in rec["noise_grad_max_abs"]), "a noise map has no gradient")
+    want = projection_run_launches(per_step, PROJ_ADAM_STEPS)
+    require(launches == want, f"timed projector launches {launches} != {want}")
+    for name, counts in plain_launches.items():
+        require(not any(counts.values()), f"plain projector ({name}) launched {counts}")
+    for name, c in curves.items():
+        require(all(math.isfinite(v) for v in c["losses"]), f"{name} losses {c['losses']}")
+        require(c["max_rel_diff"] <= 1e-4, f"{name} kernel vs plain losses: {c['max_rel_diff']}")
+        require(c["psnr"] > c["psnr_start"], f"{name} PSNR {c['psnr_start']} -> {c['psnr']}")
+        want = projection_run_launches(per_step, c["evaluations"])
+        require(c["launches"] == want and c["evaluations"] >= c["steps"]
+                and (name != "adam" or c["evaluations"] == c["steps"]),
+                f"{name} projector launches {c['launches']} != {want} ({c['steps']} steps)")
+    return rec
+
+
+def eval_tools_phase(ops, root, ckpt_dir, step):
+    """PPL (``PPL_SAMPLES`` pairs, batch 16, LPIPS with random weights) and
+    ``get_generator_styles`` on the CLI phase's EMA G, through the kernels
+    and under ``plain_versions()`` (PPL within 1e-4 relative, styles equal);
+    then ``calc_inception`` on a folder of seeded PNGs and a short ``fid``
+    run against its statistics, each through its ``main``.  Seconds of
+    each."""
+    from fm3dgan_torch.eval.ppl import get_ppl_score
+    from fm3dgan_torch.pipeline.introspect import get_generator_styles
+    from fm3dgan_torch.tools import calc_inception, fid
+    from fm3dgan_torch.tools.nets import lpips_net
+    from fm3dgan_torch.utils import build_manipulator_from_checkpoint
+
+    g = build_manipulator_from_checkpoint(ckpt_dir, step, device="cuda")[0].generator
+    lpips = lpips_net("cuda")
+
+    def ppl():
+        return get_ppl_score(lambda z: g.get_latent(z.cuda()),
+                             lambda w: g(input_is_latent=True, latent_styles=[w], randomize_noise=False),
+                             lpips, n_sample=PPL_SAMPLES, batch_size=16, latent_dim=g.style_dim,
+                             generator=torch.Generator().manual_seed(0))
+
+    z = torch.randn(4, g.style_dim, generator=torch.Generator().manual_seed(71)).cuda()
+    rec = dict(phase="eval_tools", ppl_samples=PPL_SAMPLES)
+    torch.backends.cudnn.deterministic = True
+    try:
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        kernel = ppl()
+        rec["ppl_s"] = time.perf_counter() - t0
+        rec["ppl_launches"] = ops.launch_counts()
+        styles = get_generator_styles(g, z)
+        ops.reset_launches()
+        with ops.plain_versions():
+            plain = ppl()
+            plain_styles = get_generator_styles(g, z)
+            rec["plain_launches"] = ops.launch_counts()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    rec.update(ppl=kernel, plain_ppl=plain, ppl_rel_diff=abs(kernel - plain) / abs(plain),
+               styles=len(styles), styles_max_abs_diff=max(float(abs(a - b).max())
+                                                          for a, b in zip(styles, plain_styles)))
+    del g
+    torch.cuda.empty_cache()
+    imgs = os.path.join(root, "fid_imgs")
+    _write_pngs(imgs, "x", FID_SAMPLES, 72)
+    stats = os.path.join(root, "fid_stats.pkl")
+    _, rec["calc_inception_s"] = _tool(calc_inception, "--img_dir", imgs, "--out", stats,
+                                       "--batch", "16")
+    out, rec["fid_s"] = _tool(fid, "--ckpt_dir", ckpt_dir, "--step", str(step), "--stats", stats,
+                              "--n_sample", str(FID_SAMPLES), "--batch", "16")
+    rec["fid"] = float(out.strip().splitlines()[-1].split(":")[-1])
+    emit(rec)
+    require(math.isfinite(kernel) and kernel > 0, f"PPL {kernel}")
+    require(rec["ppl_rel_diff"] <= 1e-4, f"PPL kernel vs plain: {rec['ppl_rel_diff']}")
+    require(rec["styles_max_abs_diff"] == 0.0, f"styles kernel vs plain: {rec['styles_max_abs_diff']}")
+    counts = rec["ppl_launches"]
+    require(all(counts[k] > 0 for k in ("blur", "upsample2x", "fused_leaky_relu"))
+            and counts["fused_leaky_relu_bwd"] == 0 and counts["downsample2x"] == 0,
+            f"PPL launches {counts}")
+    require(not any(rec["plain_launches"].values()), f"plain eval tools launched {rec['plain_launches']}")
+    require(math.isfinite(rec["fid"]), f"FID {rec['fid']}")
+    return rec
+
+
 # Summary key -> record key, summed per iteration or per forward.
 SUMMED = {"ms": "kernel_ms", "device_ms": "device_ms", "host_us": "host_us",
           "plain_ms": "plain_ms", "bound_ms": "bound_ms", "library_ms": "library_ms",
@@ -1299,14 +1643,17 @@ def _weighted_sums(recs, weight_key):
     return out
 
 
-def summary(records, launches, inference_launches, two_encoder_launches):
+def summary(records, launches, inference_launches, two_encoder_launches, edit_launches,
+            projector_launches):
     """One line per kernel.  The SUMMED keys are those of one float32
     training iteration without regulariser at batch 16 (the kernel-phase
     records of every training shape, each counted as often as the iteration
     launches it); the forward_* keys are those of one batch-8 inference
-    forward.  ``launches`` counts the float32 training run,
-    ``launches_inference`` one batch-8 forward, ``launches_two_encoder`` the
-    2-encoder training run."""
+    forward, the projector_* keys those of one batch-1 projector step.
+    ``launches`` counts the float32 training run, ``launches_inference`` one
+    batch-8 forward, ``launches_two_encoder`` the 2-encoder training run,
+    ``launches_edit`` one batch of the edit CLI, ``launches_projector`` one
+    projector step."""
     kernels = []
     for name, info in KERNEL_INFO.items():
         recs = [r for r in records if r["kernel"] == name and r["dtype"] == "float32"]
@@ -1314,9 +1661,11 @@ def summary(records, launches, inference_launches, two_encoder_launches):
         train_recs = [r for r in recs if "launches_per_iteration" in r]
         fwd_recs = [r for r in recs if "launches_per_forward" in r]
         fwd = _weighted_sums(fwd_recs, "launches_per_forward")
+        proj = _weighted_sums([r for r in recs if "launches_per_step" in r], "launches_per_step")
         kernels.append(dict(
             name=name, **info, launches=launches[name],
             launches_two_encoder=two_encoder_launches[name],
+            launches_edit=edit_launches[name], launches_projector=projector_launches[name],
             launches_per_iteration=sum(r["launches_per_iteration"] for r in train_recs),
             launches_inference=inference_launches[name],
             max_abs_err=max(r["max_abs_diff"] for r in recs),
@@ -1324,10 +1673,12 @@ def summary(records, launches, inference_launches, two_encoder_launches):
             **_weighted_sums(train_recs, "launches_per_iteration"),
             bound_by="bytes" if all(r["bound_by"] == "bytes" for r in train_recs) else "operations",
             **{f"forward_{k}": v for k, v in fwd.items()},
+            **{f"projector_{k}": v for k, v in proj.items()},
             note=(f"ms, device_ms, host_us, plain_ms, bound_ms, library_*: one float32 training "
                   f"iteration without regulariser, batch {TRAIN_BATCH}; forward_*: one float32 "
-                  f"inference forward, batch {BATCH}; ms: events around eager calls; device_ms: "
-                  f"CUDA-graph replay; host_us: host time of the eager calls"),
+                  f"inference forward, batch {BATCH}; projector_*: one float32 projector step, "
+                  f"batch 1; ms: events around eager calls; device_ms: CUDA-graph replay; "
+                  f"host_us: host time of the eager calls"),
         ))
     return {"kernels": kernels}
 
@@ -1361,6 +1712,14 @@ def main() -> int:
 
     emit(dict(phase="build", seconds=ops.build_all()))
     records = phase("kernel", kernel_phase, ops) + phase("training_kernel", training_kernel_phase, ops)
+    # The projector's shapes: G forward and backward at batch 1, float32.
+    proj_records = phase("projector_kernel", training_kernel_phase, ops, batch=1, passes=(1, 1, 0, 0),
+                         dtypes=(torch.float32,), what="projector")
+    records += proj_records
+    per_step = {name: sum(r["launches_per_step"] for r in proj_records if r["kernel"] == name)
+                for name in KERNEL_INFO}
+    require(per_step == projector_launches(EXPECTED_LAUNCHES),
+            f"projector kernel weights {per_step} != {projector_launches(EXPECTED_LAUNCHES)}")
     path = phase("path", path_phase, ops, pipeline)
 
     # The shipped 3-encoder configuration, 256 px, full width, LPIPS and ArcFace.
@@ -1411,7 +1770,21 @@ def main() -> int:
     phase("eval", eval_phase, ops, trainer)
     del trainer
     torch.cuda.empty_cache()
-    phase("cli", cli_phase, ops)
+    # The training CLI, then the serving and checkpoint tools on its checkpoint.
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        phase("cli", cli_phase, ops, root)
+        ckpt = os.path.join(root, "run", "ckpt")
+        edit = phase("edit_cli", edit_cli_phase, ops, root, ckpt, CLI_SAVE)
+        torch.cuda.empty_cache()
+        proj = phase("projector", projector_phase, ops, ckpt, CLI_SAVE, per_step)
+        torch.cuda.empty_cache()
+        phase("eval_tools", eval_tools_phase, ops, root, ckpt, CLI_SAVE)
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
     # The 2-encoder scheme: the forward in its five configurations, then the
     # shipped configuration at 256 px with Tensor Transform and FFHQ dual
@@ -1426,7 +1799,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("two_encoder_cli", two_encoder_cli_phase, ops)
 
-    result = summary(records, launches, path["launches"], two_train["launches"])
+    result = summary(records, launches, path["launches"], two_train["launches"],
+                     edit["launches_per_batch"], proj["launches_per_step"])
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

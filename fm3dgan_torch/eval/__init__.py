@@ -1,5 +1,6 @@
-"""Evaluation of the port: FID, the reconstruction and edit scores, and the
-visual grids (``fm3dgan/eval`` but ``ppl`` and ``projector``)."""
+"""Evaluation of the port: FID, the reconstruction and edit scores, the
+visual grids, PPL (``eval.ppl``) and image projection (``eval.projector``):
+the counterparts of ``fm3dgan/eval``."""
 
 from fm3dgan_torch.eval.fid import calc_fid, compute_inception_stats, get_model_fid_score
 from fm3dgan_torch.eval.quant_eval import (

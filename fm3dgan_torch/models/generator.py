@@ -2,9 +2,10 @@
 
 Counterpart of ``fm3dgan/models/generator.py`` with the reference's module
 and state-dict names (``style.{i}``, ``input.input``, ``conv1``, ``convs.{i}``,
-``to_rgb1``, ``to_rgbs.{i}``, ``noises.noise_{l}``).  Style mixing
-(``inject_index``), ``return_rgb_list`` and ``return_style_scalars`` belong to
-the training path and are not ported yet.
+``to_rgb1``, ``to_rgbs.{i}``, ``noises.noise_{l}``).  Randomness comes
+from an explicit ``torch.Generator``: style mixing takes an explicit
+``inject_index``, as in JAX, and ``mean_latent`` and ``make_noise`` draw
+from the generator they are given.
 """
 
 from __future__ import annotations
@@ -99,25 +100,61 @@ class Generator(nn.Module):
             r = 2 ** ((l + 5) // 2)
             self.noises.register_buffer(f"noise_{l}", torch.randn(1, 1, r, r))
 
+    # -- helpers ---------------------------------------------------------
+
+    @property
+    def device(self) -> torch.device:
+        return self.input.input.device
+
+    def get_latent(self, z: torch.Tensor) -> torch.Tensor:
+        """z [N, D] -> W [N, D] through the mapping network."""
+        return self.style(z)
+
+    def mean_latent(self, n_latent: int, generator: torch.Generator) -> torch.Tensor:
+        """The mean W [1, D] over ``n_latent`` z drawn from ``generator`` (on
+        its device; the mean is taken on this module's)."""
+        z = torch.randn(n_latent, self.style_dim, generator=generator, device=generator.device)
+        return self.style(z.to(self.device)).mean(0, keepdim=True)
+
+    def make_noise(self, generator: torch.Generator) -> List[torch.Tensor]:
+        """One noise map per layer, shaped as its ``noises`` buffer ([1, 1, r,
+        r], r = 4, 8, 8, 16, 16, ...), drawn in layer order from
+        ``generator``, on this module's device."""
+        return [torch.randn(b.shape, generator=generator, device=generator.device).to(self.device)
+                for b in self.noises.buffers()]
+
+    # -- forward ---------------------------------------------------------
+
     def forward(
         self,
         styles: Optional[torch.Tensor] = None,
         *,
         input_is_latent: bool = False,
         latent_styles: Optional[List[torch.Tensor]] = None,
+        inject_index: Optional[int] = None,
         truncation: float = 1.0,
         truncation_latent: Optional[torch.Tensor] = None,
         noise: Optional[List[Optional[torch.Tensor]]] = None,
         randomize_noise: bool = True,
         noise_generator: Optional[torch.Generator] = None,
         external_input_tensor: Optional[torch.Tensor] = None,
+        return_rgb_list: bool = False,
+        return_style_scalars: bool = False,
         return_latent: bool = False,
     ):
-        """styles: z [N, D] mapped through ``style``; or, with input_is_latent,
-        ``latent_styles`` = [W [N, D] or W+ [N, n_latent, D]].
+        """styles: z [N, D] (or a list of them) mapped through ``style``; or,
+        with input_is_latent, ``latent_styles`` = [W [N, D] or W+ [N,
+        n_latent, D]], or two W's mixed at ``inject_index`` (the first for
+        layers below it, the second for the rest).
         external_input_tensor: [N, C0, 4, 4] replacing the constant input.
         noise: explicit per-layer list; else drawn from ``noise_generator``
-        when randomize_noise, else the fixed ``noises`` buffers."""
+        when randomize_noise, else the fixed ``noises`` buffers.
+
+        Returns the image [N, 3, size, size], or with ``return_rgb_list`` the
+        skip image after every ToRGB; then, in this order, with
+        ``return_style_scalars`` the modulation s of every StyledConv and of
+        the last ToRGB only (the JAX package's and the reference's rule),
+        and with ``return_latent`` the latent [N, n_latent, D]."""
         if input_is_latent:
             if latent_styles is None:
                 raise ValueError("input_is_latent needs latent_styles")
@@ -125,8 +162,6 @@ class Generator(nn.Module):
         else:
             styles_list = list(styles) if isinstance(styles, (list, tuple)) else [styles]
             styles_list = [self.style(s) for s in styles_list]
-        if len(styles_list) != 1:
-            raise NotImplementedError("style mixing is not ported yet")
 
         if noise is None:
             if randomize_noise:
@@ -139,9 +174,16 @@ class Generator(nn.Module):
                 raise ValueError("truncation < 1 needs truncation_latent")
             styles_list = [truncation_latent + truncation * (s - truncation_latent) for s in styles_list]
 
-        latent = styles_list[0]
-        if latent.dim() < 3:
-            latent = latent[:, None, :].repeat(1, self.n_latent, 1)
+        if len(styles_list) < 2:
+            latent = styles_list[0]
+            if latent.dim() < 3:
+                latent = latent[:, None, :].repeat(1, self.n_latent, 1)
+        else:
+            if inject_index is None:
+                raise ValueError("style mixing needs an explicit inject_index")
+            latent = torch.cat([styles_list[0][:, None, :].repeat(1, inject_index, 1),
+                                styles_list[1][:, None, :].repeat(1, self.n_latent - inject_index, 1)],
+                               dim=1)
 
         if external_input_tensor is not None:
             out = external_input_tensor
@@ -149,14 +191,25 @@ class Generator(nn.Module):
             out = self.input(latent.shape[0])
 
         g = noise_generator
-        out = self.conv1(out, latent[:, 0], noise=noise[0], generator=g)
+        scalars: List[torch.Tensor] = []
+        out, s = self.conv1(out, latent[:, 0], noise=noise[0], generator=g, return_style_scalars=True)
+        scalars.append(s)
         skip = self.to_rgb1(out, latent[:, 1])
+        rgb_list = [skip]
         i = 1
         for idx, to_rgb in enumerate(self.to_rgbs):
-            out = self.convs[2 * idx](out, latent[:, i], noise=noise[1 + 2 * idx], generator=g)
-            out = self.convs[2 * idx + 1](out, latent[:, i + 1], noise=noise[2 + 2 * idx], generator=g)
-            skip = to_rgb(out, latent[:, i + 2], skip)
+            for k in range(2):
+                out, s = self.convs[2 * idx + k](out, latent[:, i + k], noise=noise[1 + 2 * idx + k],
+                                                 generator=g, return_style_scalars=True)
+                scalars.append(s)
+            skip, s = to_rgb(out, latent[:, i + 2], skip, return_style_scalars=True)
+            if i + 3 == latent.shape[1]:
+                scalars.append(s)
+            rgb_list.append(skip)
             i += 2
+        returns = [rgb_list if return_rgb_list else skip]
+        if return_style_scalars:
+            returns.append(scalars)
         if return_latent:
-            return skip, latent
-        return skip
+            returns.append(latent)
+        return returns[0] if len(returns) == 1 else tuple(returns)

@@ -19,6 +19,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from fm3dgan_torch.ops import blur, downsample2x, fused_leaky_relu, make_kernel, upsample2x
+from fm3dgan_torch.precision import acc_dtype
 
 
 class PixelNorm(nn.Module):
@@ -50,11 +51,15 @@ class EqualLinear(nn.Module):
         self.dtype = dtype
 
     def forward(self, x):
-        out = F.linear(x.to(self.dtype), (self.weight * self.scale).to(self.dtype))
+        # The scales apply in the accumulation dtype: a float64 run rounds
+        # the scaled weight and bias in float64, as the JAX module does.
+        a = acc_dtype(self.dtype)
+        out = F.linear(x.to(self.dtype), (self.weight.to(a) * self.scale).to(self.dtype))
+        bias = None if self.bias is None else self.bias.to(a) * self.lr_mul
         if self.activation == "fused_lrelu":
-            return fused_leaky_relu(out, None if self.bias is None else self.bias * self.lr_mul)
-        if self.bias is not None:
-            out = out + (self.bias * self.lr_mul).to(out.dtype)
+            return fused_leaky_relu(out, bias)
+        if bias is not None:
+            out = out + bias.to(out.dtype)
         return out
 
 
@@ -84,7 +89,7 @@ class EqualConv2d(nn.Module):
     def forward(self, x):
         out = F.conv2d(
             x.to(self.dtype),
-            (self.weight * self.scale).to(self.dtype),
+            (self.weight.to(acc_dtype(self.dtype)) * self.scale).to(self.dtype),
             stride=self.stride,
             padding=self.padding,
         )

@@ -55,8 +55,10 @@ class ModulatedConv2d(nn.Module):
             pad1 = p // 2 + 1
             self.blur = Blur(blur_kernel, pad=(pad0, pad1), upsample_factor=factor)
 
-    def forward(self, x, style):
-        """x: [N, Cin, H, W]; style: [N, style_dim] -> [N, Cout, H', W']."""
+    def forward(self, x, style, return_style_scalars: bool = False):
+        """x: [N, Cin, H, W]; style: [N, style_dim] -> [N, Cout, H', W'];
+        with ``return_style_scalars`` also the modulation s [N, Cin], the
+        per-sample scale before it is folded into the input."""
         s = self.modulation(style)  # [N, Cin], float32 (float64 for float64)
         w = self.weight[0].to(s.dtype) * self.scale  # [O, I, k, k]
         x = (x * s[:, :, None, None]).to(self.dtype)
@@ -71,6 +73,8 @@ class ModulatedConv2d(nn.Module):
             out = out * demod[:, :, None, None].to(out.dtype)
         if self.upsample:
             out = self.blur(out)
+        if return_style_scalars:
+            return out, s
         return out
 
 
@@ -122,10 +126,10 @@ class StyledConv(nn.Module):
         self.noise = NoiseInjection()
         self.activate = FusedLeakyReLU(out_channel)
 
-    def forward(self, x, style, noise=None, generator=None):
-        out = self.conv(x, style)
-        out = self.noise(out, noise, generator)
-        return self.activate(out)
+    def forward(self, x, style, noise=None, generator=None, return_style_scalars: bool = False):
+        out, s = self.conv(x, style, return_style_scalars=True)
+        out = self.activate(self.noise(out, noise, generator))
+        return (out, s) if return_style_scalars else out
 
 
 class ToRGB(nn.Module):
@@ -145,9 +149,9 @@ class ToRGB(nn.Module):
         self.conv = ModulatedConv2d(in_channel, 3, 1, style_dim, demodulate=False, dtype=dtype)
         self.bias = nn.Parameter(torch.zeros(1, 3, 1, 1))
 
-    def forward(self, x, style, skip=None):
-        out = self.conv(x, style)
+    def forward(self, x, style, skip=None, return_style_scalars: bool = False):
+        out, s = self.conv(x, style, return_style_scalars=True)
         out = out + self.bias.to(out.dtype)
         if skip is not None:
             out = out + self.upsample(skip)
-        return out
+        return (out, s) if return_style_scalars else out

@@ -101,7 +101,7 @@ class FaceManipulator(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.generator.input.input.device
+        return self.generator.device
 
     def load_variables(self, state_dicts: Dict[str, Dict[str, torch.Tensor]]) -> None:
         """Load {'g', 'e_tsr', 'e_w', 'e_w_plus'} state dicts (reference layout,
@@ -236,7 +236,7 @@ class TwoEncoderModels(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.generator.input.input.device
+        return self.generator.device
 
     def load_variables(self, state_dicts: Dict[str, Dict[str, torch.Tensor]]) -> None:
         """Load {'g', 'tensor_encoder', 'modulation_encoder'} state dicts

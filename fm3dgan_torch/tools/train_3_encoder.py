@@ -230,21 +230,11 @@ def _make_eval_hook(args, cfg, trainer):
 
     inception_fn = real_stats = None
     if args.fid_stats_path:
-        import torch
-
         from fm3dgan_torch.eval.fid import load_stats
-        from fm3dgan_torch.models.inception import InceptionV3Pool3, fid_inception_state_dict
+        from fm3dgan_torch.tools.nets import inception_net
 
         real_stats = load_stats(args.fid_stats_path)
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(0)
-            inception = InceptionV3Pool3()
-        if args.inception_ckpt:
-            sd = torch.load(args.inception_ckpt, map_location="cpu", weights_only=True)
-            inception.load_state_dict(fid_inception_state_dict(sd, inception))
-        else:
-            print("WARNING: random-init inception features for in-loop FID", flush=True)
-        inception_fn = inception.requires_grad_(False).eval().to(trainer.device)
+        inception_fn = inception_net(trainer.device, args.inception_ckpt)
 
     return QuantEvalHook(trainer, rec_batches=rec_fn, edit_batches=edit_fn,
                          inception_fn=inception_fn, real_stats=real_stats)

@@ -315,4 +315,7 @@ class Trainer(TrainerBase):
             "sliced_layer": self.config.w_plus_sliced_layer,
             "size": self.config.size,
             "input_size": self.input_size,
+            "width_mult": self.config.width_mult,
+            "latent": self.config.latent,
+            "channel_multiplier": self.config.channel_multiplier,
         }

@@ -156,4 +156,7 @@ class Trainer2(TrainerBase):
             "use_tanh": self.config.use_tanh,
             "sliced_layer": self.config.w_plus_sliced_layer,
             "size": self.config.size,
+            "width_mult": 1.0,  # built at full width, as the JAX Trainer2
+            "latent": self.config.latent,
+            "channel_multiplier": self.config.channel_multiplier,
         }

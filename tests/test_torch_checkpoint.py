@@ -89,7 +89,8 @@ def test_checkpoint_round_trips_bit_exactly_and_resumes(tmp_path):
     assert path.endswith("000001.pt")
     meta = json.load(open(tmp_path / "000001.json"))
     assert meta == {"step": 1, "tsr_encode": "Render Image", "use_tanh": False,
-                    "sliced_layer": None, "size": 16, "input_size": 128}
+                    "sliced_layer": None, "size": 16, "input_size": 128,
+                    "width_mult": 1 / 16, "latent": 32, "channel_multiplier": 2}
     ckpt = torch.load(path, weights_only=True)
     assert sorted(ckpt["g"]) == sorted(Generator(size=16, style_dim=32, n_mlp=8,
                                                  width_mult=1 / 16).state_dict())

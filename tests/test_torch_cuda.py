@@ -882,3 +882,85 @@ def test_training_2encoder_cli_runs_two_iterations_on_card(cuda_device, tmp_path
     assert [line["iter"] for line in lines] == [0, 1]
     for line in lines:
         assert all(np.isfinite(v) for v in line.values() if isinstance(v, float)), line
+
+
+@pytest.mark.gpu
+def test_projector_step_on_card_matches_plain(cuda_device):
+    """One projector step on the card (16 px G of width 1/16, every noise
+    weight seeded non-zero, LPIPS): the gradients of MSE + LPIPS to the
+    latent and every noise map through the kernels against the plain
+    versions (all five kernels launch; the plain run none), and 3 Adam
+    steps with the switch to LPIPS after 1, loss by loss."""
+    from fm3dgan_torch.eval import projector
+    from fm3dgan_torch.models import LPIPS, Generator
+    from fm3dgan_torch.nn.modulated import NoiseInjection
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        g = Generator(size=16, style_dim=32, n_mlp=2, width_mult=1 / 16).cuda().eval()
+        lp = LPIPS().cuda().eval().requires_grad_(False)
+    rng = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in g.modules():
+            if isinstance(m, NoiseInjection):
+                m.weight.copy_(torch.rand(1, generator=rng) * 0.4 + 0.1)
+    target = (torch.rand(1, 3, 16, 16, generator=rng) * 2 - 1).cuda()
+    w = projector.get_avg_w_latent(g, rng, n_samples=64)
+    noises = g.make_noise(rng)
+
+    def grads():
+        latent = w.clone().requires_grad_(True)
+        ns = [n.clone().requires_grad_(True) for n in noises]
+        loss = projector.projection_loss(g, target, latent, ns, lp, True, projector.ProjectorConfig())
+        return torch.autograd.grad(loss, [latent, *ns])
+
+    ops.reset_launches()
+    got = grads()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    ops.reset_launches()
+    with ops.plain_versions():
+        want = grads()
+    assert not any(ops.launch_counts().values())
+    assert all(v > 0 for v in counts.values()), counts
+    for a, b in zip(got, want):
+        assert float(b.abs().max()) > 0
+        torch.testing.assert_close(a, b, atol=1e-5 * float(b.abs().max()), rtol=1e-4)
+    cfg = projector.ProjectorConfig(steps=3, lr=1e-3, lpips_start_step=1)
+    kernel = projector.optimize_projection(g, target, w, noises, lp, cfg)
+    with ops.plain_versions():
+        plain = projector.optimize_projection(g, target, w, noises, lp, cfg)
+    np.testing.assert_allclose(kernel["losses"], plain["losses"], rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_edit_cli_on_card_matches_plain(cuda_device, tmp_path):
+    """The edit CLI's ``main`` on its default device, the card, from a
+    small training checkpoint: its PNGs within 1 uint8 level of the same CLI
+    under the plain versions; K1, K3 and K4 launch, the plain run none."""
+    from PIL import Image
+
+    from fm3dgan_torch.tools import edit
+
+    trainer = Trainer(TINY_TRAIN, device="cuda", input_size=128, use_lpips=False, use_arcface=False)
+    trainer.save_checkpoint(str(tmp_path / "ckpt"), 1)
+    rng = np.random.RandomState(3)
+    files = []
+    for name in ("p0", "r0", "r1", "r2"):
+        files.append(str(tmp_path / f"{name}.png"))
+        Image.fromarray(rng.randint(0, 256, (128, 128, 3), dtype=np.uint8)).save(files[-1])
+    args = ["--ckpt_dir", str(tmp_path / "ckpt"), "--step", "1", "--photo", files[0],
+            "--render", *files[1:], "--batch", "2"]
+    ops.reset_launches()
+    assert edit.main(args + ["--out_dir", str(tmp_path / "kernel")]) == 0
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    ops.reset_launches()
+    with ops.plain_versions():
+        assert edit.main(args + ["--out_dir", str(tmp_path / "plain")]) == 0
+    assert not any(ops.launch_counts().values())
+    assert all(counts[k] > 0 for k in ("blur", "upsample2x", "fused_leaky_relu")), counts
+    for i in range(3):
+        a, b = (np.asarray(Image.open(tmp_path / d / f"p0__r{i}.png")).astype(int)
+                for d in ("kernel", "plain"))
+        assert a.shape == (16, 16, 3) and int(np.abs(a - b).max()) <= 1

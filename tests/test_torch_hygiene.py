@@ -48,6 +48,11 @@ def test_importing_the_port_loads_no_jax():
         "import fm3dgan_torch.models.fan_landmark, fm3dgan_torch.models.inception\n"
         "import fm3dgan_torch.train.loop2, fm3dgan_torch.train.steps_2encoder\n"
         "import fm3dgan_torch.tools.train_2_encoder, fm3dgan_torch.tools.common\n"
+        "import fm3dgan_torch.utils, fm3dgan_torch.pipeline.introspect\n"
+        "import fm3dgan_torch.eval.ppl, fm3dgan_torch.eval.projector, fm3dgan_torch.tools.nets\n"
+        "import fm3dgan_torch.tools.edit, fm3dgan_torch.tools.project, fm3dgan_torch.tools.ppl\n"
+        "import fm3dgan_torch.tools.fid, fm3dgan_torch.tools.calc_inception\n"
+        "import fm3dgan_torch.tools.quant_eval, fm3dgan_torch.tools.make_dataset_layouts\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
     )

@@ -155,7 +155,8 @@ def test_checkpoint_round_trip_and_resume(tmp_path):
     path = a.save_checkpoint(str(tmp_path), 1)
     with open(tmp_path / "000001.json") as f:
         assert json.load(f) == {"step": 1, "co_mod": None, "mod_encode": "Render Image",
-                                "use_tanh": False, "sliced_layer": None, "size": 16}
+                                "use_tanh": False, "sliced_layer": None, "size": 16,
+                                "width_mult": 1.0, "latent": 512, "channel_multiplier": 2}
     b = _trainer(**kw)
     b.load_checkpoint(str(tmp_path), 1)
     os.remove(path)
