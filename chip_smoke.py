@@ -90,7 +90,19 @@ Builds the hand-written CUDA kernels of ``fm3dgan_torch`` from
     batch-1 kernel records' weights say);
 14. eval tools phase: PPL (64 pairs, LPIPS) and ``get_generator_styles``
     kernel vs plain, then ``calc_inception`` on seeded PNGs and a 32-sample
-    ``fid`` run against its statistics, each through its ``main``.
+    ``fid`` run against its statistics, each through its ``main``;
+15. export phase: ``python -m fm3dgan_torch.tools.export_model``'s
+    ``main`` with ``--verify`` on that checkpoint at batch 16 in float32
+    and bfloat16 (the kernels as ``torch.ops.fm3dgan_torch`` operators in
+    the program); the reloaded program's launches per batch (one
+    forward's), none under ``plain_versions()`` and agreeing with the
+    kernel run, a second seeded weight set through the same program, img/s
+    of the program against the eager forward;
+16. landmarks phase: ``extract_landmarks``'s ``main`` with
+    ``--random_init`` on 32 seeded 256 px PNGs (5 and 68 points), seconds
+    and images/s; S3FD's 12 maps at batch 8 against float64, and its ms;
+17. IR backbone phase: ``IR_SE_50`` and ``IR_50`` at 112 px, batch 16,
+    against float64, and their ms.
 
 Prints one JSON line per measurement and per phase's seconds, the card's
 name and power limit, a ``{"kernels": [...]}`` summary, and last
@@ -143,6 +155,9 @@ EDIT_RENDERS, EDIT_BATCH = 32, 16  # the edit CLI: 1 photo x 32 renders, batches
 PROJ_ADAM_STEPS, PROJ_LPIPS_START, PROJ_LBFGS_STEPS = 60, 30, 10
 PPL_SAMPLES = 64
 FID_SAMPLES = 32
+EXPORT_BATCH = 16
+LANDMARK_IMAGES, LANDMARK_BATCH = 32, 8
+IR_BATCH = 16
 
 # (C, R): blur input [N, C, 2R+1, 2R+1] after each upsampling transposed conv.
 BLUR_SHAPES = [(512, 4), (512, 8), (512, 16), (512, 32), (256, 64), (128, 128)]
@@ -1624,6 +1639,167 @@ def eval_tools_phase(ops, root, ckpt_dir, step):
     return rec
 
 
+def export_phase(ops, root, ckpt_dir, step):
+    """The export CLI on the CLI phase's checkpoint (EMA G, full width, 256
+    px) at batch ``EXPORT_BATCH``, float32 and bfloat16, through its
+    ``main`` with ``--verify`` (the reloaded program against the live
+    forward: 2e-5 in float32, 5e-2 in bfloat16).  Then the float32
+    program: launches per batch (one forward's: K3 6 / K4 6 / K1 13), none
+    under ``plain_versions()`` and within 1e-5·max|ref| of the kernel run
+    there; a second seeded weight set through the same program against its
+    own eager forward (2e-5); these comparisons under cuDNN's deterministic
+    algorithms, as the tool's own (its default ones differ from run to run
+    by more than 2e-5 on this checkpoint: recorded beside them); img/s of
+    the program against the eager forward (default algorithms), in turns.
+    The bfloat16 program's launches too."""
+    from fm3dgan_torch.pipeline import FaceManipulator
+    from fm3dgan_torch.tools import export_model
+    from fm3dgan_torch.utils import build_manipulator_from_checkpoint
+
+    rec = dict(phase="export", batch=EXPORT_BATCH, size=256)
+    paths = {}
+    for name in ("float32", "bfloat16"):
+        paths[name] = os.path.join(root, f"model_{name}.pt2")
+        out, rec[f"{name}_main_s"] = _tool(
+            export_model, "--ckpt_dir", ckpt_dir, "--step", str(step), "--out", paths[name],
+            "--batch", str(EXPORT_BATCH), "--dtype", name, "--verify")
+        rec[f"{name}_verify"] = out.strip().splitlines()[-1]
+        rec[f"{name}_mb"] = os.path.getsize(paths[name]) / 1e6
+        torch.cuda.empty_cache()
+    photo, render = (x.cuda() for x in export_model.seeded_inputs(EXPORT_BATCH, 256, seed=5))
+    counts = {}
+    for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        models, meta = build_manipulator_from_checkpoint(ckpt_dir, step, device="cuda", dtype=dtype)
+        serving = export_model.ServingForward(models, meta)
+        weights = export_model.program_weights(serving)
+        program = torch.export.load(paths[name]).module()
+        with torch.no_grad():
+            ops.reset_launches()
+            got = program(weights, photo, render)
+            torch.cuda.synchronize()
+            counts[name] = ops.launch_counts()
+            if name != "float32":
+                continue
+            rec["default_cudnn_program_vs_eager"] = float((serving(photo, render) - got).abs().max())
+            rec["default_cudnn_eager_vs_eager"] = float(
+                (serving(photo, render) - serving(photo, render)).abs().max())
+            with export_model.deterministic_cudnn():
+                got = program(weights, photo, render)
+                ops.reset_launches()
+                with ops.plain_versions():
+                    plain = program(weights, photo, render)
+                torch.cuda.synchronize()
+                rec["plain_launches"] = ops.launch_counts()
+            ref = got.float()
+            rec["max_abs_diff_vs_plain"] = float((plain.float() - ref).abs().max())
+            rec["plain_atol"] = 1e-5 * float(ref.abs().max())
+            times = {"eager": [], "program": []}
+            for which in ("eager", "program", "program", "eager"):
+                fn = ((lambda: serving(photo, render)) if which == "eager"
+                      else (lambda: program(weights, photo, render)))
+                times[which].append(cuda_ms(fn, iters=5, warmup=2)[0])
+            rec["runs_ms"] = times
+            for which, ms in times.items():
+                rec[f"{which}_img_per_s"] = EXPORT_BATCH / (sum(ms) / len(ms)) * 1e3
+            other = export_model.ServingForward(
+                FaceManipulator.create(size=256, input_size=256, device="cuda", seed=1), meta)
+            with export_model.deterministic_cudnn():
+                want = other(photo, render)
+                got2 = program(export_model.program_weights(other), photo, render)
+            rec["second_weights_max_abs_diff"] = float((got2 - want).abs().max())
+            rec["second_weights_vs_first"] = float((got2 - got).abs().max())
+            del other, want, got2, plain
+        del models, serving, weights, program, got
+        torch.cuda.empty_cache()
+    rec["launches_per_batch"] = counts
+    emit(rec)
+    for name in ("float32", "bfloat16"):
+        require(rec[f"{name}_verify"].startswith("verify OK"), f"{name} export: {rec[f'{name}_verify']}")
+        require(counts[name] == EXPECTED_LAUNCHES,
+                f"{name} exported batch launches {counts[name]} != {EXPECTED_LAUNCHES}")
+    require(not any(rec["plain_launches"].values()), f"plain program launched {rec['plain_launches']}")
+    require(rec["max_abs_diff_vs_plain"] <= rec["plain_atol"],
+            f"program kernel vs plain: {rec['max_abs_diff_vs_plain']} > {rec['plain_atol']}")
+    require(rec["second_weights_max_abs_diff"] <= 2e-5,
+            f"second weight set vs its forward: {rec['second_weights_max_abs_diff']}")
+    require(rec["second_weights_vs_first"] > 1e-2, "the second weight set did not move the output")
+    return rec
+
+
+def landmarks_phase(root):
+    """``extract_landmarks``'s ``main`` with ``--random_init`` on
+    ``LANDMARK_IMAGES`` seeded 256 px PNGs in batches of ``LANDMARK_BATCH``,
+    5 and 68 points: seconds and images/s, one file per image with as many
+    finite ``x y`` lines as points.  Then S3FD (the tool's seeded weights)
+    at ``LANDMARK_BATCH`` x 256 px: its 12 maps within 1e-4·max of a float64
+    run of the same weights on the card, and its ms."""
+    from fm3dgan_torch.models.sfd_detector import S3FD, preprocess_sfd
+    from fm3dgan_torch.tools import extract_landmarks
+    from fm3dgan_torch.tools.nets import seeded
+
+    d = os.path.join(root, "faces")
+    _write_pngs(d, "face", LANDMARK_IMAGES, 81)
+    rec = dict(phase="landmarks", images=LANDMARK_IMAGES, batch=LANDMARK_BATCH, size=256)
+    lines_ok = {}
+    for points in (5, 68):
+        out_dir = os.path.join(root, f"landmarks{points}")
+        _, rec[f"points{points}_main_s"] = _tool(
+            extract_landmarks, "--img_dir", d, "--out_dir", out_dir, "--random_init",
+            "--batch", str(LANDMARK_BATCH), "--points", str(points))
+        rec[f"points{points}_img_per_s"] = LANDMARK_IMAGES / rec[f"points{points}_main_s"]
+        files = sorted(os.listdir(out_dir))
+        values = [[float(v) for line in open(os.path.join(out_dir, f)) for v in line.split()]
+                  for f in files]
+        lines_ok[points] = (len(files) == LANDMARK_IMAGES
+                            and all(len(v) == 2 * points and all(map(math.isfinite, v)) for v in values))
+    net32 = seeded(S3FD, 0)  # the tool's --random_init weights
+    net64 = S3FD(dtype=torch.float64)
+    net64.load_state_dict(net32.state_dict())
+    net32, net64 = (n.requires_grad_(False).eval().cuda() for n in (net32, net64))
+    g = torch.Generator().manual_seed(82)
+    x = preprocess_sfd(torch.rand(LANDMARK_BATCH, 3, 256, 256, generator=g) * 255).cuda()
+    with torch.no_grad():
+        maps32, maps64 = net32(x), net64(x.double())
+        rec["s3fd_ms"] = cuda_ms(lambda: net32(x), iters=10, warmup=2)[0]
+    rec["s3fd_max_rel_diff_vs_float64"] = max(
+        float((a.double() - b).abs().max() / b.abs().max()) for a, b in zip(maps32, maps64))
+    rec["s3fd_map_shapes"] = [list(m.shape) for m in maps32]
+    emit(rec)
+    require(all(lines_ok.values()), f"landmark files: {lines_ok}")
+    require(rec["s3fd_max_rel_diff_vs_float64"] <= 1e-4,
+            f"S3FD float32 vs float64: {rec['s3fd_max_rel_diff_vs_float64']}")
+    return rec
+
+
+def ir_backbone_phase():
+    """``IR_SE_50`` and ``IR_50`` at 112 px, batch ``IR_BATCH``, seeded
+    weights: the float32 embeddings within 1e-4 of a float64 run on the
+    card, and float32 ms per batch."""
+    from fm3dgan_torch.models import psp_encoder
+
+    g = torch.Generator().manual_seed(91)
+    x = (torch.rand(IR_BATCH, 3, 112, 112, generator=g) * 2 - 1).cuda()
+    rec = dict(phase="ir_backbone", batch=IR_BATCH, size=112)
+    for name in ("IR_SE_50", "IR_50"):
+        torch.manual_seed(92)
+        net32 = getattr(psp_encoder, name)()
+        net64 = getattr(psp_encoder, name)(dtype=torch.float64)
+        net64.load_state_dict(net32.state_dict())
+        net32, net64 = (n.requires_grad_(False).eval().cuda() for n in (net32, net64))
+        with torch.no_grad():
+            y32, y64 = net32(x), net64(x.double())
+            rec[f"{name}_ms"] = cuda_ms(lambda: net32(x), iters=10, warmup=2)[0]
+        rec[f"{name}_max_abs_diff_vs_float64"] = float((y32.double() - y64).abs().max())
+        rec[f"{name}_norm"] = float(y32.norm(dim=-1).mean())
+        del net32, net64
+    emit(rec)
+    for name in ("IR_SE_50", "IR_50"):
+        require(rec[f"{name}_max_abs_diff_vs_float64"] <= 1e-4,
+                f"{name} float32 vs float64: {rec[f'{name}_max_abs_diff_vs_float64']}")
+        require(abs(rec[f"{name}_norm"] - 1.0) <= 1e-5, f"{name} embedding norm {rec[f'{name}_norm']}")
+    return rec
+
+
 # Summary key -> record key, summed per iteration or per forward.
 SUMMED = {"ms": "kernel_ms", "device_ms": "device_ms", "host_us": "host_us",
           "plain_ms": "plain_ms", "bound_ms": "bound_ms", "library_ms": "library_ms",
@@ -1782,6 +1958,12 @@ def main() -> int:
         proj = phase("projector", projector_phase, ops, ckpt, CLI_SAVE, per_step)
         torch.cuda.empty_cache()
         phase("eval_tools", eval_tools_phase, ops, root, ckpt, CLI_SAVE)
+        torch.cuda.empty_cache()
+        phase("export", export_phase, ops, root, ckpt, CLI_SAVE)
+        torch.cuda.empty_cache()
+        phase("landmarks", landmarks_phase, root)
+        torch.cuda.empty_cache()
+        phase("ir_backbone", ir_backbone_phase)
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(root, ignore_errors=True)

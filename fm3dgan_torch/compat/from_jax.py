@@ -2,8 +2,9 @@
 
 The inverse of ``fm3dgan/compat/torch_port.py``'s ``convert_generator``,
 ``convert_discriminator``, ``convert_resnet18_encoder``,
-``convert_psp_encoder``, ``convert_arcface`` and ``convert_lpips``, and of
-``fm3dgan/models/fan_landmark.py``'s ``convert_fan`` and
+``convert_psp_encoder``, ``convert_ir_backbone``, ``convert_arcface`` and
+``convert_lpips``, and of ``fm3dgan/models/fan_landmark.py``'s
+``convert_fan``, ``fm3dgan/models/sfd_detector.py``'s ``convert_s3fd`` and
 ``fm3dgan/models/inception.py``'s ``convert_fid_inception``: the
 output uses the reference torch key names and layouts, so a reference torch
 checkpoint and a converted JAX tree load into the port alike.
@@ -149,9 +150,10 @@ def resnet18_from_jax(v: Mapping[str, Any]) -> SD:
     return sd
 
 
-def psp_from_jax(v: Mapping[str, Any]) -> SD:
-    params, stats = v["params"], v["batch_stats"]
-    sd: SD = {"input_layer.0.weight": _conv(params["input_conv"]["kernel"])}
+def _ir_body(sd: SD, params: Mapping, stats: Mapping) -> None:
+    """The IR-SE input layer and ``body.{i}`` units of pSp and the
+    recognition Backbone."""
+    sd["input_layer.0.weight"] = _conv(params["input_conv"]["kernel"])
     _bn(sd, "input_layer.1", params["input_bn"], stats["input_bn"])
     sd["input_layer.2.weight"] = _t(params["input_prelu"]["alpha"])
     i = 0
@@ -170,6 +172,12 @@ def psp_from_jax(v: Mapping[str, Any]) -> SD:
             sd[f"{dst}.res_layer.5.fc1.weight"] = _conv(p["se"]["fc1"]["kernel"])
             sd[f"{dst}.res_layer.5.fc2.weight"] = _conv(p["se"]["fc2"]["kernel"])
         i += 1
+
+
+def psp_from_jax(v: Mapping[str, Any]) -> SD:
+    params = v["params"]
+    sd: SD = {}
+    _ir_body(sd, params, v["batch_stats"])
     j = 0
     while f"style_{j}" in params:
         p = params[f"style_{j}"]
@@ -184,6 +192,41 @@ def psp_from_jax(v: Mapping[str, Any]) -> SD:
     for lat in ("latlayer1", "latlayer2"):
         sd[f"{lat}.weight"] = _conv(params[lat]["kernel"])
         sd[f"{lat}.bias"] = _t(params[lat]["bias"])
+    return sd
+
+
+def ir_backbone_from_jax(v: Mapping[str, Any]) -> SD:
+    """Inverse of ``convert_ir_backbone``: the IR / IR-SE recognition
+    Backbone in the reference ``model_irse`` layout; ``output_layer.4`` has
+    only running statistics where the JAX BatchNorm has no scale and bias
+    (``affine=False``).  The JAX module flattens NCHW, so ``output_fc``
+    needs no reorder."""
+    params, stats = v["params"], v["batch_stats"]
+    sd: SD = {}
+    _ir_body(sd, params, stats)
+    _bn(sd, "output_layer.0", params["output_bn"], stats["output_bn"])
+    sd["output_layer.3.weight"] = _linear(params["output_fc"]["kernel"])
+    sd["output_layer.3.bias"] = _t(params["output_fc"]["bias"])
+    p1d = params.get("output_bn1d", {})
+    if p1d:
+        _bn(sd, "output_layer.4", p1d, stats["output_bn1d"])
+    else:
+        sd["output_layer.4.running_mean"] = _t(stats["output_bn1d"]["mean"])
+        sd["output_layer.4.running_var"] = _t(stats["output_bn1d"]["var"])
+        sd["output_layer.4.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+    return sd
+
+
+def s3fd_from_jax(v: Mapping[str, Any]) -> SD:
+    """Inverse of ``convert_s3fd``: S3FD in the public s3fd layout, conv
+    kernels OIHW and the L2Norm scales ``conv*_norm.weight`` as they are."""
+    sd: SD = {}
+    for mod, entry in v["params"].items():
+        if "kernel" in entry:
+            sd[f"{mod}.weight"] = _conv(entry["kernel"])
+            sd[f"{mod}.bias"] = _t(entry["bias"])
+        else:
+            sd[f"{mod}.weight"] = _t(entry["weight"])
     return sd
 
 
@@ -304,17 +347,19 @@ _CONVERTERS = {
     "arcface": arcface_from_jax,
     "fan": fan_from_jax,
     "inception": inception_from_jax,
+    "ir_backbone": ir_backbone_from_jax,
+    "s3fd": s3fd_from_jax,
 }
 
 
 def from_jax(variables_np: Mapping[str, Any]) -> Dict[str, SD]:
     """{'g', 'g_ema', 'e_tsr', 'e_w', 'e_w_plus', 'tensor_encoder',
     'modulation_encoder', 'd', 'd_edit', 'd_ffhq', 'lpips', 'arcface',
-    'fan', 'inception'} flax variables (numpy leaves) -> state dicts of the
-    same keys, for ``FaceManipulator.load_variables``,
-    ``TwoEncoderModels.load_variables``, ``Discriminator.load_state_dict``,
-    the trainers' ``frozen_state_dicts`` and
-    ``InceptionV3Pool3.load_state_dict``."""
+    'fan', 'inception', 'ir_backbone', 's3fd'} flax variables (numpy
+    leaves) -> state dicts of the same keys, for
+    ``FaceManipulator.load_variables``, ``TwoEncoderModels.load_variables``,
+    ``Discriminator.load_state_dict``, the trainers' ``frozen_state_dicts``
+    and the ``load_state_dict`` of the other modules."""
     return {k: _CONVERTERS[k](v) for k, v in variables_np.items() if k in _CONVERTERS}
 
 

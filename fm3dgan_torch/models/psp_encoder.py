@@ -5,7 +5,9 @@ state-dict names (``input_layer``, ``body.{i}``, ``styles.{j}``,
 ``latlayer1/2``): an IR-SE backbone with FPN taps at three levels,
 align_corners bilinear lateral fusion, and n_styles GradualStyleBlocks split
 coarse/middle/fine at indices 3/7 -> [N, n_styles, style_dim].  The IR / IR-SE
-recognition Backbone waits for the ArcFace/evaluation slice.
+face-recognition :class:`Backbone` (``IR_50`` ... ``IR_SE_152``) shares its
+bottleneck units, with the reference ``model_irse`` names (``input_layer``,
+``body.{i}``, ``output_layer.{0, 3, 4}``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch.nn.functional as F
 
 from fm3dgan_torch.models._common import bn, conv, prelu
 from fm3dgan_torch.nn.layers import EqualLinear
+from fm3dgan_torch.precision import acc
 
 
 def get_blocks(num_layers: int, width: int = 64) -> List[List[Tuple[int, int, int]]]:
@@ -99,6 +102,79 @@ class BottleneckIRSE(nn.Module):
         if len(r) > 5:
             res = r[5](res)
         return res + shortcut
+
+
+class Backbone(nn.Module):
+    """IR / IR-SE face-recognition backbone: [N, 3, S, S] (S = 112 or 224)
+    -> l2-normalised [N, 512] embedding.
+
+    Frozen, as the JAX module is used: BatchNorm normalises with the running
+    statistics and the dropout of ``output_layer.1`` is the identity.  The
+    output layer is BatchNorm2d, Dropout, the NCHW flatten, Linear(512 * (S /
+    16)^2, 512) and BatchNorm1d (without scale and bias unless ``affine``);
+    the embedding is divided by its norm, without eps."""
+
+    def __init__(self, input_size: int = 112, num_layers: int = 50, mode: str = "ir",
+                 drop_ratio: float = 0.4, affine: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if input_size not in (112, 224):
+            raise ValueError(f"input_size should be 112 or 224, got {input_size}")
+        if num_layers not in (50, 100, 152):
+            raise ValueError(f"num_layers should be 50, 100 or 152, got {num_layers}")
+        if mode not in ("ir", "ir_se"):
+            raise ValueError(f"mode should be ir or ir_se, got {mode}")
+        self.dtype = dtype
+        self.input_layer = nn.Sequential(
+            nn.Conv2d(3, 64, 3, 1, 1, bias=False), nn.BatchNorm2d(64), nn.PReLU(64),
+        )
+        self.body = nn.Sequential(*(
+            BottleneckIRSE(cin, depth, stride, mode == "ir_se", dtype)
+            for stage in get_blocks(num_layers) for (cin, depth, stride) in stage
+        ))
+        side = input_size // 16
+        self.output_layer = nn.Sequential(
+            nn.BatchNorm2d(512), nn.Dropout(drop_ratio), nn.Flatten(),
+            nn.Linear(512 * side * side, 512), nn.BatchNorm1d(512, affine=affine),
+        )
+
+    def forward(self, x):
+        il, ol = self.input_layer, self.output_layer
+        x = prelu(il[2], bn(il[1], conv(il[0], x, self.dtype)))
+        for unit in self.body:
+            x = unit(x)
+        x = bn(ol[0], x).flatten(1)
+        x = F.linear(x.to(self.dtype), ol[3].weight.to(self.dtype), ol[3].bias.to(self.dtype))
+        b = ol[4]
+        xf = acc(x)
+        x = F.batch_norm(xf, b.running_mean.to(xf.dtype), b.running_var.to(xf.dtype),
+                         None if b.weight is None else b.weight.to(xf.dtype),
+                         None if b.bias is None else b.bias.to(xf.dtype),
+                         False, 0.0, b.eps).to(x.dtype)
+        return x / torch.linalg.vector_norm(acc(x), dim=-1, keepdim=True).to(x.dtype)
+
+
+def IR_50(input_size: int = 112, dtype: torch.dtype = torch.float32) -> Backbone:
+    return Backbone(input_size, 50, "ir", affine=False, dtype=dtype)
+
+
+def IR_101(input_size: int = 112, dtype: torch.dtype = torch.float32) -> Backbone:
+    return Backbone(input_size, 100, "ir", affine=False, dtype=dtype)
+
+
+def IR_152(input_size: int = 112, dtype: torch.dtype = torch.float32) -> Backbone:
+    return Backbone(input_size, 152, "ir", affine=False, dtype=dtype)
+
+
+def IR_SE_50(input_size: int = 112, dtype: torch.dtype = torch.float32) -> Backbone:
+    return Backbone(input_size, 50, "ir_se", affine=False, dtype=dtype)
+
+
+def IR_SE_101(input_size: int = 112, dtype: torch.dtype = torch.float32) -> Backbone:
+    return Backbone(input_size, 100, "ir_se", affine=False, dtype=dtype)
+
+
+def IR_SE_152(input_size: int = 112, dtype: torch.dtype = torch.float32) -> Backbone:
+    return Backbone(input_size, 152, "ir_se", affine=False, dtype=dtype)
 
 
 class GradualStyleBlock(nn.Module):

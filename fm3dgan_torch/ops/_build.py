@@ -9,11 +9,24 @@ the source, so an edited kernel is rebuilt and an unchanged one is reused.
 Every C entry returns ``cudaGetLastError()`` after its launch; the wrappers
 call it through :func:`launch`, which raises if it is not 0.
 
+Every launch is the body of a ``torch.library`` operator of the
+``fm3dgan_torch`` namespace (:func:`define_op`): ``torch.ops.fm3dgan_torch.
+{blur, upsample2x, downsample2x, fused_leaky_relu, fused_leaky_relu_bwd}``.
+Their arguments are schema types only (tensors, ints, floats, FIR taps as
+``float[]`` with their shape), and each has a fake implementation giving
+its output's shape and dtype, so ``torch.export`` traces them into a
+program that runs wherever this package's ops module is imported.  Eager
+calls take the same route.  The operators are defined with
+``torch.library.Library`` and a kernel per device key rather than
+``torch.library.custom_op``, whose Python dispatch costs several times as
+much host time per call.
+
 The host path of a launch is kept lean, since at small shapes it is longer
 than the kernel: FIR taps are ready ctypes arrays built once per value
-(:func:`host_taps`), :func:`launch` switches devices only when the tensor
-is not on the current one and passes the current stream's raw handle
-without building a ``torch.cuda.Stream``.
+(:func:`host_taps`, and :func:`op_taps` from an operator's ``float[]``),
+:func:`launch` switches devices only when the tensor is not on the current
+one and passes the current stream's raw handle without building a
+``torch.cuda.Stream``.
 """
 
 from __future__ import annotations
@@ -26,7 +39,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -206,14 +219,17 @@ def launch(fn, x, *args) -> None:
 class HostTaps:
     """FIR taps as the C entries take them: ``array`` (float32, read-only),
     ``c_array`` (a ctypes copy) and its ``address``, built once per value by
-    :func:`host_taps`; ``flipped`` is the adjoint's taps (every axis
-    reversed), built once too."""
+    :func:`host_taps`; ``values`` are the taps as an operator's ``float[]``
+    (row-major Python floats, each the float32 value exactly);
+    ``flipped`` is the adjoint's taps (every axis reversed), built once
+    too."""
 
-    __slots__ = ("array", "key", "c_array", "address", "_flipped")
+    __slots__ = ("array", "key", "values", "c_array", "address", "_flipped")
 
     def __init__(self, array: np.ndarray, key: Tuple):
         self.array = array
         self.key = key
+        self.values = array.ravel().tolist()
         self.c_array = (ctypes.c_float * array.size).from_buffer_copy(array)
         self.address = ctypes.addressof(self.c_array)
         self._flipped: Optional[HostTaps] = None
@@ -241,3 +257,34 @@ def host_taps(k) -> HostTaps:
         a.setflags(write=False)
         taps = _taps.setdefault(key, HostTaps(a, key))
     return taps
+
+
+_op_taps: Dict[Tuple, HostTaps] = {}
+
+
+def op_taps(values: Sequence[float], shape: Tuple[int, ...]) -> HostTaps:
+    """The :class:`HostTaps` of an operator's ``float[]`` taps of ``shape``;
+    after the first call for a value, one dictionary lookup."""
+    key = (tuple(values), shape)
+    taps = _op_taps.get(key)
+    if taps is None:
+        taps = _op_taps.setdefault(key, host_taps(np.asarray(values, np.float32).reshape(shape)))
+    return taps
+
+
+LIBRARY = torch.library.Library("fm3dgan_torch", "DEF")
+
+
+def define_op(schema: str, impl: Callable, fake: Callable):
+    """Define ``fm3dgan_torch::<name>`` by ``schema`` with ``impl`` as its
+    kernel on CPU and CUDA tensors (the plain version or the launch, as
+    :func:`use_kernel` says) and ``fake`` as its shape function; returns
+    the operator's overload.  No autograd kernel is registered: the
+    wrappers' ``autograd.Function``s call the operators with autograd off,
+    and their backwards call the operators again."""
+    name = schema.split("(", 1)[0]
+    LIBRARY.define(schema)
+    for key in ("CPU", "CUDA"):
+        LIBRARY.impl(name, impl, key)
+    torch.library.register_fake(f"fm3dgan_torch::{name}", fake, lib=LIBRARY)
+    return getattr(torch.ops.fm3dgan_torch, name).default

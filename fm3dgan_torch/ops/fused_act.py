@@ -12,10 +12,13 @@ kernels in ``csrc/fused_act.cu`` in ``torch.autograd.Function``s, twice
 differentiable as the reference's ``op/fused_act.py:29-66``: the forward saves
 only its output; its backward is the backward Function, which runs the
 backward kernel and sums ``dbias``; the backward of that is the backward
-kernel again on ``ggx + ggb``.  Every launch goes through
-:func:`_launch_fwd` / :func:`_launch_bwd`, which run the plain version on a
-CPU tensor (and under ``plain_versions()``) and the kernel on a CUDA tensor,
-so the CPU runs the same autograd wiring as the card.
+kernel again on ``ggx + ggb``.  Every launch goes through the operators
+``torch.ops.fm3dgan_torch.fused_leaky_relu`` and ``fused_leaky_relu_bwd``
+(``_build.define_op``), whose bodies :func:`_launch_fwd` /
+:func:`_launch_bwd` run the plain version on a CPU tensor (and under
+``plain_versions()``) and the kernel on a CUDA tensor, so the CPU runs the
+same autograd wiring as the card and ``torch.export`` records the
+operators.
 """
 
 from __future__ import annotations
@@ -102,6 +105,14 @@ def _launch_bwd(grad, out, negative_slope, scale):
     return dx
 
 
+_fwd_op = _build.define_op(
+    "fused_leaky_relu(Tensor x, Tensor? bias, float negative_slope, float scale) -> Tensor",
+    _launch_fwd, lambda x, bias, negative_slope, scale: torch.empty_like(x))
+_bwd_op = _build.define_op(
+    "fused_leaky_relu_bwd(Tensor grad, Tensor out, float negative_slope, float scale) -> Tensor",
+    _launch_bwd, lambda grad, out, negative_slope, scale: torch.empty_like(grad))
+
+
 def _channel_sum(dx: torch.Tensor) -> torch.Tensor:
     """dbias: the sum over every dim but 1, accumulated in float32."""
     dims = [0] + list(range(2, dx.dim()))
@@ -111,7 +122,7 @@ def _channel_sum(dx: torch.Tensor) -> torch.Tensor:
 class _FusedLeakyReLUFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, bias, negative_slope, scale):
-        out = _launch_fwd(x, bias, negative_slope, scale)
+        out = _fwd_op(x, bias, negative_slope, scale)
         ctx.save_for_backward(out)
         ctx.consts = (negative_slope, scale)
         ctx.with_bias = bias is not None
@@ -133,7 +144,7 @@ class _FusedLeakyReLUBackwardFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, grad, out, negative_slope, scale, with_dbias):
-        dx = _launch_bwd(grad.contiguous(), out, negative_slope, scale)
+        dx = _bwd_op(grad.contiguous(), out, negative_slope, scale)
         ctx.save_for_backward(out)
         ctx.consts = (negative_slope, scale)
         if with_dbias:

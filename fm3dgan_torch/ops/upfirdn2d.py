@@ -21,15 +21,19 @@ differentiable:
 * down2 (pads p0, p1) -> up2 with the flipped taps and pads
   (k-p0-1, H-2*OH+p0), an exact 2x upsample when H = 2*OH.
 
-Every launch goes through one ``_launch_*`` helper, which runs the plain
-version on a CPU tensor (and under ``plain_versions()``) and launches the
-kernel on a CUDA tensor or raises for a configuration it does not take; so
-the CPU runs the same autograd wiring as the card.  FIR kernels are host
-constants (sequences or numpy arrays), as the TPU kernels needed static taps;
-each distinct value becomes one cached ``_build.HostTaps``.  blur, up2 and
-down2 go through their Function only where autograd records (an input that
-requires grad, grad mode on), and are launched directly otherwise: the
-Function's host cost is larger than the kernel at the small shapes.
+Every launch goes through one operator, ``torch.ops.fm3dgan_torch.blur``,
+``upsample2x`` or ``downsample2x`` (``_build.define_op``), whose body is a
+``_launch_*`` helper: it runs the plain version on a CPU tensor (and under
+``plain_versions()``) and launches the kernel on a CUDA tensor or raises
+for a configuration it does not take; so the CPU runs the same autograd
+wiring as the card, and ``torch.export`` records the operators.  FIR
+kernels are host constants (sequences or numpy arrays), as the TPU kernels
+needed static taps; each distinct value becomes one cached
+``_build.HostTaps``, passed to an operator as ``float[]`` with its shape.
+blur, up2 and down2 go through their Function only where autograd records
+(an input that requires grad, grad mode on), and call the operator directly
+otherwise: the Function's host cost is larger than the kernel at the small
+shapes.
 
 The blur kernel stages a tile of each plane in shared memory and sums the
 taps row by row, column by column, the plain version's order to the bit.
@@ -203,9 +207,7 @@ def _launch_blur(x: torch.Tensor, taps: "_build.HostTaps", p0: int, p1: int) -> 
         raise ValueError(f"blur kernel must be at most 8x8, got {k.shape}")
     if not (0 <= p0 < min(kh, kw) and 0 <= p1 < min(kh, kw)):
         raise ValueError(f"blur pads must satisfy 0 <= p < k, got {(p0, p1)}")
-    oh, ow = h + p0 + p1 - kh + 1, w + p0 + p1 - kw + 1
-    if oh <= 0 or ow <= 0:
-        raise ValueError(f"blur output would be empty: {(oh, ow)}")
+    oh, ow = _blur_hw(h, w, kh, kw, p0, p1)
     y = torch.empty((n, c, oh, ow), dtype=x.dtype, device=x.device)
     _build.launch(_build.library("upfirdn2d").fm_blur, x, x.data_ptr(), y.data_ptr(),
                   taps.address, code, n * c, h, w, kh, kw, p0, p1)
@@ -242,10 +244,59 @@ def _launch_down2(x: torch.Tensor, taps: "_build.HostTaps", p0: int, p1: int) ->
     return y
 
 
-def _down2_hw(h: int, w: int, k: int, p0: int, p1: int):
+def _blur_hw(h, w, kh: int, kw: int, p0: int, p1: int):
+    oh, ow = h + p0 + p1 - kh + 1, w + p0 + p1 - kw + 1
+    if oh <= 0 or ow <= 0:
+        raise ValueError(f"blur output would be empty: {(oh, ow)}")
+    return oh, ow
+
+
+def _down2_hw(h, w, k: int, p0: int, p1: int):
     if h + p0 + p1 - k < 0 or w + p0 + p1 - k < 0:
         raise ValueError(f"downsample2x output would be empty: {(h, w)}, k={k}, pad={(p0, p1)}")
     return (h + p0 + p1 - k) // 2 + 1, (w + p0 + p1 - k) // 2 + 1
+
+
+# The operators: their bodies are the launches above, their fake versions
+# the same output arithmetic.
+
+def _blur_fake(x, taps, kh, kw, p0, p1):
+    return x.new_empty((*x.shape[:2], *_blur_hw(x.shape[2], x.shape[3], kh, kw, p0, p1)))
+
+
+def _up2_fake(x, taps, p0, p1):
+    return x.new_empty((*x.shape[:2], 2 * x.shape[2], 2 * x.shape[3]))
+
+
+def _down2_fake(x, taps, p0, p1):
+    return x.new_empty((*x.shape[:2], *_down2_hw(x.shape[2], x.shape[3], len(taps), p0, p1)))
+
+
+_blur_op = _build.define_op(
+    "blur(Tensor x, float[] taps, int kh, int kw, int p0, int p1) -> Tensor",
+    lambda x, taps, kh, kw, p0, p1: _launch_blur(x, _build.op_taps(taps, (kh, kw)), p0, p1),
+    _blur_fake)
+_up2_op = _build.define_op(
+    "upsample2x(Tensor x, float[] taps, int p0, int p1) -> Tensor",
+    lambda x, taps, p0, p1: _launch_up2(x, _build.op_taps(taps, (len(taps),)), p0, p1),
+    _up2_fake)
+_down2_op = _build.define_op(
+    "downsample2x(Tensor x, float[] taps, int p0, int p1) -> Tensor",
+    lambda x, taps, p0, p1: _launch_down2(x, _build.op_taps(taps, (len(taps),)), p0, p1),
+    _down2_fake)
+
+
+def _call_blur(x, taps: "_build.HostTaps", p0: int, p1: int) -> torch.Tensor:
+    kh, kw = taps.array.shape
+    return _blur_op(x, taps.values, kh, kw, p0, p1)
+
+
+def _call_up2(x, taps: "_build.HostTaps", p0: int, p1: int) -> torch.Tensor:
+    return _up2_op(x, taps.values, p0, p1)
+
+
+def _call_down2(x, taps: "_build.HostTaps", p0: int, p1: int) -> torch.Tensor:
+    return _down2_op(x, taps.values, p0, p1)
 
 
 def _records_grad(x: torch.Tensor) -> bool:
@@ -255,26 +306,26 @@ def _records_grad(x: torch.Tensor) -> bool:
 def _blur(x, taps, p0, p1):
     if _records_grad(x):
         return _BlurFn.apply(x, taps, p0, p1)
-    return _launch_blur(x, taps, p0, p1)
+    return _call_blur(x, taps, p0, p1)
 
 
 def _up2(x, taps, p0, p1):
     if _records_grad(x):
         return _Upsample2xFn.apply(x, taps, p0, p1)
-    return _launch_up2(x, taps, p0, p1)
+    return _call_up2(x, taps, p0, p1)
 
 
 def _down2(x, taps, p0, p1):
     if _records_grad(x):
         return _Downsample2xFn.apply(x, taps, p0, p1)
-    return _launch_down2(x, taps, p0, p1)
+    return _call_down2(x, taps, p0, p1)
 
 
 class _BlurFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, taps, p0, p1):
         ctx.taps, ctx.pads = taps, (p0, p1)
-        return _launch_blur(x, taps, p0, p1)
+        return _call_blur(x, taps, p0, p1)
 
     @staticmethod
     def backward(ctx, grad):
@@ -290,7 +341,7 @@ class _Upsample2xFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, taps, p0, p1):
         ctx.taps, ctx.p0 = taps, p0
-        return _launch_up2(x, taps, p0, p1)
+        return _call_up2(x, taps, p0, p1)
 
     @staticmethod
     def backward(ctx, grad):
@@ -303,7 +354,7 @@ class _Downsample2xFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, taps, p0, p1):
         ctx.taps, ctx.p0, ctx.in_hw = taps, p0, tuple(x.shape[2:])
-        return _launch_down2(x, taps, p0, p1)
+        return _call_down2(x, taps, p0, p1)
 
     @staticmethod
     def backward(ctx, grad):

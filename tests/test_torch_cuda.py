@@ -512,10 +512,13 @@ def test_training_cli_runs_two_iterations_on_card(cuda_device, tmp_path):
 def test_g_step_calls_stay_near_float64_on_card(cuda_device):
     """Every float32 call of one 256 px G step (full width, LPIPS and
     ArcFace, batch 4) recomputed on float64 copies of its inputs, cuDNN off
-    for the recomputation: the worst relative error max|y32 - y64| /
-    max|y64| of each call is printed (the ten largest) and held under 1e-3.
-    In-place calls and calls without float32 inputs are skipped."""
+    for the recomputation, and the kernels' ``fm3dgan_torch`` operators
+    recomputed by their plain versions (the kernels take float32 and
+    bfloat16 only): the worst relative error max|y32 - y64| / max|y64| of
+    each call is printed (the ten largest) and held under 1e-3.  In-place
+    calls and calls without float32 inputs are skipped."""
     import collections
+    import contextlib
 
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils._pytree import tree_leaves, tree_map
@@ -536,7 +539,8 @@ def test_g_step_calls_stay_near_float64_on_card(cuda_device):
                     or any(a.is_floating_point() and a.dtype != torch.float32 for a in tensors)):
                 return out
             up = lambda a: a.double() if isinstance(a, torch.Tensor) and a.dtype == torch.float32 else a  # noqa: E731
-            with torch.backends.cudnn.flags(enabled=False):
+            plain = ops.plain_versions() if func.namespace == "fm3dgan_torch" else contextlib.nullcontext()
+            with torch.backends.cudnn.flags(enabled=False), plain:
                 ref = func(*tree_map(up, args), **tree_map(up, kwargs))
             outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor) and t.dtype == torch.float32]
             refs = [t for t in tree_leaves(ref) if isinstance(t, torch.Tensor) and t.dtype == torch.float64]
@@ -964,3 +968,99 @@ def test_edit_cli_on_card_matches_plain(cuda_device, tmp_path):
         a, b = (np.asarray(Image.open(tmp_path / d / f"p0__r{i}.png")).astype(int)
                 for d in ("kernel", "plain"))
         assert a.shape == (16, 16, 3) and int(np.abs(a - b).max()) <= 1
+
+
+OP_CASES = (
+    ("blur", lambda g: (torch.randn(2, 12, 17, 17, generator=g), (K4 * 4.0).ravel().tolist(), 4, 4, 1, 1)),
+    ("upsample2x", lambda g: (torch.randn(2, 3, 9, 7, generator=g), list(UP_TAPS), 2, 1)),
+    ("downsample2x", lambda g: (torch.randn(2, 3, 10, 10, generator=g), list(UP_TAPS), 1, 1)),
+    ("fused_leaky_relu", lambda g: (torch.randn(2, 12, 8, 8, generator=g), torch.randn(12, generator=g),
+                                    0.2, 2 ** 0.5)),
+    ("fused_leaky_relu_bwd", lambda g: (torch.randn(2, 12, 8, 8, generator=g),
+                                        torch.randn(2, 12, 8, 8, generator=g), 0.2, 2 ** 0.5)),
+)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_operators_on_card_match_plain(cuda_device, dtype):
+    """Each ``torch.ops.fm3dgan_torch`` operator on CUDA tensors launches its
+    kernel once and agrees with its plain version (the same operator under
+    ``plain_versions()``, which launches nothing)."""
+    g = torch.Generator().manual_seed(41)
+    for name, make in OP_CASES:
+        args = [a.to(cuda_device, dtype) if torch.is_tensor(a) else a for a in make(g)]
+        op = getattr(torch.ops.fm3dgan_torch, name).default
+        ops.reset_launches()
+        got = op(*args)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()[name] == 1 and sum(ops.launch_counts().values()) == 1, name
+        with ops.plain_versions():
+            plain = op(*[a.float() if torch.is_tensor(a) else a for a in args])
+        assert sum(ops.launch_counts().values()) == 1, name
+        assert got.dtype == dtype and got.device.type == "cuda"
+        _check(got, plain, dtype)
+
+
+@pytest.mark.gpu
+def test_exported_program_on_card(cuda_device, tmp_path):
+    """The export CLI's ``main`` on its default device, the card, from a
+    small training checkpoint, with ``--verify``; the reloaded program
+    launches K3 2 / K4 2 / K1 5 per 16 px batch, nothing under
+    ``plain_versions()``, and agrees with the kernel run there (cuDNN's
+    deterministic algorithms, as the tool's ``--verify``)."""
+    import contextlib
+    import io
+
+    from fm3dgan_torch.tools import export_model
+    from fm3dgan_torch.utils import build_manipulator_from_checkpoint
+
+    trainer = Trainer(TINY_TRAIN, device="cuda", input_size=128, use_lpips=False, use_arcface=False)
+    trainer.save_checkpoint(str(tmp_path / "ckpt"), 1)
+    out = str(tmp_path / "model.pt2")
+    stdout = io.StringIO()
+    with contextlib.redirect_stdout(stdout):
+        assert export_model.main(["--ckpt_dir", str(tmp_path / "ckpt"), "--step", "1", "--out", out,
+                                  "--batch", "2", "--verify"]) == 0
+    assert "device=cuda" in stdout.getvalue() and "verify OK" in stdout.getvalue()
+    models, meta = build_manipulator_from_checkpoint(str(tmp_path / "ckpt"), 1)
+    weights = export_model.program_weights(export_model.ServingForward(models, meta))
+    program = torch.export.load(out).module()
+    photo, render = (x.to(cuda_device) for x in export_model.seeded_inputs(2, 128, seed=1))
+    with torch.no_grad(), export_model.deterministic_cudnn():
+        ops.reset_launches()
+        got = program(weights, photo, render)
+        torch.cuda.synchronize()
+        assert ops.launch_counts() == {"blur": 2, "upsample2x": 2, "fused_leaky_relu": 5,
+                                       "fused_leaky_relu_bwd": 0, "downsample2x": 0}
+        ops.reset_launches()
+        with ops.plain_versions():
+            plain = program(weights, photo, render)
+        assert not any(ops.launch_counts().values())
+    assert got.shape == (2, 16, 16, 3)
+    torch.testing.assert_close(got, plain, atol=1e-5 * float(plain.abs().max()), rtol=0)
+
+
+@pytest.mark.gpu
+def test_s3fd_and_backbone_on_card_match_float64(cuda_device):
+    """S3FD's 12 maps (128 px) and the IR-SE-50 embedding (112 px) on the
+    card in float32 against float64 runs of the same seeded weights on the
+    card: within 1e-4 of the largest float64 value, the module bar."""
+    from fm3dgan_torch.models.psp_encoder import IR_SE_50
+    from fm3dgan_torch.models.sfd_detector import S3FD, preprocess_sfd
+
+    gen = torch.Generator().manual_seed(42)
+    for make, x in ((S3FD, preprocess_sfd(torch.rand(2, 3, 128, 128, generator=gen) * 255)),
+                    (IR_SE_50, torch.rand(2, 3, 112, 112, generator=gen) * 2 - 1)):
+        torch.manual_seed(43)
+        net32 = make().requires_grad_(False).eval()
+        net64 = make(dtype=torch.float64).requires_grad_(False).eval()
+        net64.load_state_dict(net32.state_dict())
+        net32, net64 = net32.to(cuda_device), net64.to(cuda_device)
+        x = x.to(cuda_device)
+        with torch.no_grad():
+            y32, y64 = net32(x), net64(x.double())
+        pairs = zip(y32, y64) if isinstance(y32, list) else [(y32, y64)]
+        rel = max(float((a.double() - b).abs().max() / b.abs().max()) for a, b in pairs)
+        print(f"{make.__name__}: float32 vs float64 {rel:.3e}")
+        assert rel <= 1e-4, (make.__name__, rel)

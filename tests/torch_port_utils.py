@@ -99,7 +99,8 @@ def loss_net_state_dict(module, seed):
             elif isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
                 for t, lo, hi in ((m.weight, 0.5, 1.5), (m.running_var, 0.5, 1.5),
                                   (m.bias, -0.1, 0.1), (m.running_mean, -0.1, 0.1)):
-                    t.copy_(rand(t, lo, hi))
+                    if t is not None:  # affine=False: statistics only
+                        t.copy_(rand(t, lo, hi))
             elif isinstance(m, torch.nn.PReLU):
                 m.weight.copy_(rand(m.weight, 0.05, 0.4))
         for k in range(5):
