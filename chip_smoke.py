@@ -102,7 +102,32 @@ Builds the hand-written CUDA kernels of ``fm3dgan_torch`` from
     ``--random_init`` on 32 seeded 256 px PNGs (5 and 68 points), seconds
     and images/s; S3FD's 12 maps at batch 8 against float64, and its ms;
 17. IR backbone phase: ``IR_SE_50`` and ``IR_50`` at 112 px, batch 16,
-    against float64, and their ms.
+    against float64, and their ms;
+18. ddp phase: two processes of this script on the one card, a gloo world
+    over CUDA tensors (NCCL refuses two ranks on one device), each with its
+    8 rows of a global batch of 16: the full-width 256 px ``Trainer`` (LPIPS,
+    ArcFace)'s D, R1, G and PPL gradients at the initial weights (fixed
+    noise, cuDNN deterministic, averaged over the ranks), 6 training
+    iterations (ms, launches and collectives per iteration; each rank
+    launches every kernel, an iteration without regulariser as often as the
+    kernel phase's weights say; after them every parameter and statistic
+    equal on both ranks to the bit), the FFHQ-DS G, FFHQ G and PPL gradients
+    of the Tensor Transform ``Trainer2``, and ``make_mesh_feature_fn``'s
+    Inception features of 10 images.  Rank 0 then leaves the group and runs
+    the same as one process on the global batch: the ranks' gradients held
+    by :func:`hold_gradient` against its own and its float64 plain run,
+    their losses within 1e-4, the 6 iterations' losses side by side (a bar on
+    iteration 0's D, L1, LPIPS and face-ID losses, which no update precedes),
+    the features within 1e-4;
+19. ddp_cli phase: ``python -m torch.distributed.run --nproc_per_node 1``
+    with ``train_3_encoder --data_parallel`` (an NCCL world of one, 256 px,
+    fake data, 4 iterations, a checkpoint after iteration 2, a resumed run)
+    against the same CLI as one process, all at lr 1e-7 under cuDNN's
+    deterministic algorithms (``--run_module``): losses within 1e-5, the
+    resumed iterations equal to the bit, ms per iteration with and without
+    ``--data_parallel``, collectives and bytes all-reduced per iteration
+    against the parameters' sizes; then ``train_2_encoder --data_parallel``
+    (2 iterations) and ``fid --data_parallel`` against ``fid``.
 
 Prints one JSON line per measurement and per phase's seconds, the card's
 name and power limit, a ``{"kernels": [...]}`` summary, and last
@@ -655,6 +680,24 @@ def _hold_gradients(ops, trainer, run, inputs, phase, batch):
     loss_rel = {k: abs(got_losses[k] - v) / max(abs(v), 1e-30) for k, v in exact_losses.items()
                 if v != 0.0}
     require(all(v <= 1e-4 for v in loss_rel.values()), f"float64 losses differ: {loss_rel}")
+    held, fails = _compare_held(got, want, exact, again)
+    rec = dict(phase=phase, batch=batch, dtype="float32", **held,
+               losses=got_losses, loss_rel_diff_vs_exact=loss_rel,
+               launches=counts, plain_launches=plain_counts,
+               max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+    emit(rec)
+    require(not held["plain_repeat_differs"],
+            f"the plain path does not reproduce itself: {held['plain_repeat_differs']}")
+    require(not fails, f"gradients outside their bar: {fails}")
+    require(all(v > 0 for v in counts.values()), f"{phase} launches {counts}")
+    return rec
+
+
+def _compare_held(got, want, exact, again=None):
+    """Every tensor of ``exact`` ({step: {part: {name: grad}}}) through
+    :func:`hold_gradient` with ``got`` as its k and ``want`` as its p (and
+    ``again``, a repeat of ``want`` that must equal it to the bit): the
+    record's counts and worst differences, and the tensors that fail."""
     keys = ("kernel_vs_plain", "kernel_vs_exact", "plain_vs_exact")
     worst = {k: {g: (0.0, "") for g in ("g_and_d", "encoders")} for k in keys}
     n, zero, plain_off, repeat_differs, over, fails = 0, 0, 0, [], [], []
@@ -666,9 +709,9 @@ def _hold_gradients(ops, trainer, run, inputs, phase, batch):
                 n += 1
                 what = f"{step} {part}.{name}"
                 k, p = got[step][part][name], want[step][part][name]
-                if not torch.equal(again[step][part][name], p):
+                if again is not None and not torch.equal(again[step][part][name], p):
                     repeat_differs.append(what)
-                ok, rel = hold_gradient(k, p, e, part_max)
+                ok, rel = hold_gradient(k.to(e.device), p.to(e.device), e, part_max)
                 if not ok:
                     fails.append((what, rel))
                 if "residue" in rel:
@@ -680,18 +723,10 @@ def _hold_gradients(ops, trainer, run, inputs, phase, batch):
                 plain_off += rel["plain_vs_exact"] > 1e-4
                 if rel["kernel_vs_plain"] > 1e-4:
                     over.append((what, rel))
-    rec = dict(phase=phase, batch=batch, dtype="float32", tensors=n,
-               zero_in_exact_arithmetic=zero, worst_rel_diff=worst,
-               plain_over_1e4_from_exact=plain_off,
-               kernel_vs_plain_over_1e4=over, plain_repeat_differs=repeat_differs,
-               losses=got_losses, loss_rel_diff_vs_exact=loss_rel,
-               launches=counts, plain_launches=plain_counts,
-               max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
-    emit(rec)
-    require(not repeat_differs, f"the plain path does not reproduce itself: {repeat_differs}")
-    require(not fails, f"gradients outside their bar: {fails}")
-    require(all(v > 0 for v in counts.values()), f"{phase} launches {counts}")
-    return rec
+    held = dict(tensors=n, zero_in_exact_arithmetic=zero, worst_rel_diff=worst,
+                plain_over_1e4_from_exact=plain_off, kernel_vs_plain_over_1e4=over,
+                plain_repeat_differs=repeat_differs)
+    return held, fails
 
 
 def hmap_gradient_phase(ops, train, trainer):
@@ -1800,6 +1835,615 @@ def ir_backbone_phase():
     return rec
 
 
+# ---------------- data parallelism -------------------------------------------
+
+DDP_WORLD = 2
+DDP_BATCH = 16  # the global batch of the ddp phase, 8 per rank
+DDP_ITERS = 6
+DDP_TWO_BATCH = 8  # the 2-encoder gradients' global batch, 4 per rank
+DDP_FID_IMAGES = 10  # in two batches of 5, each padded by a row for the 2 ranks
+DDP_TIMEOUT = 900
+DDP_CLI_ITERS, DDP_CLI_SAVE = 4, 2  # the resumed run repeats the last iteration
+DDP_CLI_LR = "1e-7"
+
+
+def _here():
+    return os.path.dirname(os.path.abspath(__file__))
+
+
+def _ddp_root():
+    return os.path.join(_here(), "build", "chip_smoke_ddp")
+
+
+def _fingerprint(tensors):
+    """[n, 2] int64: the sum of each tensor's bit patterns and their
+    position-weighted sum (wrapping), equal on two ranks only if the bits
+    are (to any practical chance)."""
+    rows = []
+    for t in tensors:
+        bits = t.detach().contiguous().view(-1)
+        bits = bits.view(torch.int32 if bits.element_size() == 4 else torch.int64).long()
+        idx = torch.arange(1, bits.numel() + 1, device=bits.device, dtype=torch.int64)
+        rows.append(torch.stack([bits.sum(), (bits * idx).sum()]))
+    return torch.stack(rows).cpu()
+
+
+def _three_encoder_grads(train, trainer, state, photo, render, ref, ppl, ppl_idx):
+    """D, R1 (D), G (DS with D_edit, LPIPS, ArcFace) and PPL on rows
+    ``ppl_idx`` of the batch with the PPL image ``ppl``: their gradients at
+    the current weights with fixed noise, averaged over the ranks (as every
+    optimizer step averages them), and the losses of the global batch."""
+    from fm3dgan_torch import parallel
+
+    steps, cfg, avg = train.steps, trainer.config, parallel.average_gradients
+    d, losses = steps.d_step_grads(state, cfg, photo, render, ref, use_edit=False)
+    r1, r1_m = steps.d_reg_step_grads(state, cfg, ref, use_edit=False)
+    g, g_m = steps.g_step_grads(state, cfg, photo, render, ref, use_edit=True, ds_flag=True,
+                                extreme_ds_flag=False)
+    p_sub, r_sub = trainer._ppl_rows(photo, render, ppl_idx)
+    ppl_g, _, ppl_m = steps.g_reg_step_grads(state, cfg, p_sub, r_sub, ppl_noise=ppl)
+    losses = parallel.mean_metrics({**losses, **r1_m, **g_m, "g_reg": ppl_m["g_reg"]})
+    return ({"d_step": avg(d), "r1": avg(r1), "g_step": avg(g), "g_reg_step": avg(ppl_g)},
+            {k: float(v) for k, v in losses.items()})
+
+
+def _two_encoder_grads(train, trainer, state, photo, render, ref, ppl, ppl_idx):
+    """The 2-encoder gradient phase's G, FFHQ G and PPL steps (fixed noise),
+    averaged over the ranks, and the global batch's losses."""
+    from fm3dgan_torch import parallel
+
+    steps2, cfg, enc, avg = train.steps_2encoder, trainer.config, trainer.mod_encode, \
+        parallel.average_gradients
+    g, losses = steps2.g_step_grads(state, cfg, photo, render, ref, enc, ds_flag=True)
+    g_ffhq, ffhq_m, _ = steps2.g_ffhq_ds_step_grads(state, cfg, photo, render, photo, enc)
+    p_sub, r_sub = trainer._ppl_rows(photo, render, ppl_idx)
+    g_reg, _, ppl_m = steps2.g_reg_step_grads(state, cfg, p_sub, r_sub, enc, ppl_noise=ppl)
+    losses = parallel.mean_metrics({**losses, **ffhq_m, "g_reg": ppl_m["g_reg"]})
+    return ({"g_step": avg(g), "g_ffhq_ds_step": avg(g_ffhq), "g_reg_step": avg(g_reg)},
+            {k: float(v) for k, v in losses.items()})
+
+
+def _ddp_gradient_inputs(steps, rows):
+    """The global batches of the held gradients (3-encoder: batch 16, DS
+    pairs, PPL on every other row; 2-encoder: batch 8, PPL on the first
+    half), ``rows`` of each, prepared on the card, with the PPL images."""
+    import numpy as np
+
+    photo, render, ref = (steps.prepare_batch(a, "cuda")
+                          for a in _train_inputs(DDP_BATCH, 71, ds_flag=True))
+    g = torch.Generator(device="cuda").manual_seed(72)
+    ppl_idx = np.arange(0, DDP_BATCH, 2)
+    ppl = torch.randn(len(ppl_idx), 3, 256, 256, device="cuda", generator=g) / 256
+    three = (photo[rows(DDP_BATCH)], render[rows(DDP_BATCH)], ref[rows(DDP_BATCH)],
+             ppl[rows(len(ppl_idx))], ppl_idx)
+    photo, render, _ = (steps.prepare_batch(a, "cuda")
+                        for a in _two_encoder_inputs(DDP_TWO_BATCH, 61))
+    ref = photo.flip(0)
+    half = np.arange(DDP_TWO_BATCH // 2)
+    ppl = torch.randn(len(half), 3, 256, 256, device="cuda", generator=g) / 256
+    two = (photo[rows(DDP_TWO_BATCH)], render[rows(DDP_TWO_BATCH)], ref[rows(DDP_TWO_BATCH)],
+           ppl[rows(len(half))], half)
+    return three, two
+
+
+def _fid_images():
+    g = torch.Generator(device="cuda").manual_seed(73)
+    return torch.rand(DDP_FID_IMAGES, 3, 256, 256, device="cuda", generator=g) * 2 - 1
+
+
+def _to_cpu(grads):
+    return {s: {k: {n: t.detach().cpu() for n, t in part.items()} for k, part in parts.items()}
+            for s, parts in grads.items()}
+
+
+def _held_runs(ops, train, trainer, run, inputs, with_plain=True):
+    """``run`` (:func:`_three_encoder_grads` or :func:`_two_encoder_grads`)
+    under cuDNN's deterministic algorithms through the kernels, under
+    ``plain_versions()`` (None without ``with_plain``), and in float64 under
+    ``plain_versions()`` with every parameter and buffer cast to float64 (no
+    float32 rounding left): the three gradient sets on the host, and the
+    first run's losses."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        kernels, losses = run(train, trainer, trainer.state, *inputs)
+        kernels, plain = _to_cpu(kernels), None
+        with ops.plain_versions():
+            if with_plain:
+                plain = _to_cpu(run(train, trainer, trainer.state, *inputs)[0])
+            state64 = trainer.float64_state()
+            for m in vars(state64).values():
+                if isinstance(m, torch.nn.Module):
+                    m.double()
+            *tensors, ppl_idx = inputs
+            exact = _to_cpu(run(train, trainer, state64, *(t.double() for t in tensors),
+                                ppl_idx)[0])
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return kernels, plain, exact, losses
+
+
+def _float64_distance(got, exact):
+    """The largest |got - exact| over each tensor's max |exact| (over its
+    partition's for a gradient zero in exact arithmetic, within 1e-6 of the
+    partition's largest), and where."""
+    worst = (0.0, "")
+    for step, parts in exact.items():
+        for part, tensors in parts.items():
+            part_max = max(float(e.abs().max()) for e in tensors.values())
+            for name, e in tensors.items():
+                scale = float(e.abs().max())
+                scale = scale if scale > 1e-6 * part_max else part_max
+                d = float((got[step][part][name] - e).abs().max()) / scale
+                worst = max(worst, (d, f"{step} {part}.{name}"))
+    return worst
+
+
+def _float32_distance(got, want, exact):
+    """Per step, the largest |got - want| over max |exact| of a tensor, and
+    each one's largest distance to ``exact`` (no bar: two float32 runs that
+    round differently)."""
+    out = {}
+    for step, parts in exact.items():
+        w = dict(ddp_vs_one=0.0, ddp_vs_exact=0.0, one_vs_exact=0.0)
+        for part, tensors in parts.items():
+            part_max = max(float(e.abs().max()) for e in tensors.values())
+            for name, e in tensors.items():
+                scale = float(e.abs().max())
+                if scale <= 1e-6 * part_max:
+                    continue
+                k, p = got[step][part][name].double(), want[step][part][name].double()
+                w["ddp_vs_one"] = max(w["ddp_vs_one"], float((k - p).abs().max()) / scale)
+                w["ddp_vs_exact"] = max(w["ddp_vs_exact"], float((k - e).abs().max()) / scale)
+                w["one_vs_exact"] = max(w["one_vs_exact"], float((p - e).abs().max()) / scale)
+        out[step] = w
+    return out
+
+
+def ddp_rank_main(rank, port, root) -> int:
+    """One rank of the ddp phase (``--ddp_rank``): a gloo world of
+    ``DDP_WORLD`` processes on the one card over CUDA tensors.  Runs the
+    held gradients, ``DDP_ITERS`` training iterations, the 2-encoder
+    gradients and the sharded FID features on this rank's rows; rank 0 then
+    leaves the group and runs the same work as one process on the global
+    batch (:func:`_ddp_one_process`) and writes ``result.json``."""
+    import datetime
+
+    from fm3dgan_torch import ops, parallel, train
+    from fm3dgan_torch.eval.fid import make_mesh_feature_fn
+    from fm3dgan_torch.tools.nets import inception_net
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    (r, w), device = parallel.init_distributed(f"127.0.0.1:{port}", DDP_WORLD, rank,
+                                               backend="gloo", device="cuda",
+                                               timeout=datetime.timedelta(seconds=600))
+    ops.build_all()
+    with open(os.path.join(root, "per_iteration.json")) as f:
+        per_iteration = json.load(f)
+    out = dict(rank=r, world=w, device=str(device))
+    three, two = _ddp_gradient_inputs(train.steps, parallel.local_rows)
+
+    # 3-encoder: the held gradients at the initial weights, then training.
+    trainer = train.Trainer(train.TrainConfig(), seed=0, device="cuda")
+    *grads3, out["losses_grads"] = _held_runs(ops, train, trainer, _three_encoder_grads, three)
+    grads3 = grads3 if r == 0 else None
+    rows = parallel.local_rows(DDP_BATCH)
+    out["iterations"] = []
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    for i in range(DDP_ITERS):
+        batch = [a[rows] for a in _train_inputs(DDP_BATCH, 100 + i, trainer.config.is_ds_iter(i))]
+        before, stats = ops.launch_counts(), json.loads(json.dumps(parallel.STATS))
+        t0 = time.perf_counter()
+        m = trainer.train_iteration(i, *batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        coll = {k: {f: v[f] - stats.get(k, {}).get(f, 0) for f in v}
+                for k, v in parallel.STATS.items()}
+        rec = dict(phase="ddp_train", rank=r, iteration=i, batch=len(batch[0]),
+                   global_batch=DDP_BATCH, branch=_branch(trainer, i), ms=ms, launches=counts,
+                   collectives=coll,
+                   losses={k: float(v) for k, v in m.items() if torch.is_tensor(v)})
+        out["iterations"].append(rec)
+        emit(rec)
+        require(all(math.isfinite(v) for v in rec["losses"].values()), f"ddp iteration {i}")
+        if "+" not in rec["branch"]:
+            require(counts == per_iteration,
+                    f"rank {r} iteration {i}: launches {counts} != {per_iteration}")
+    out["launches"] = ops.launch_counts()
+    require(all(v > 0 for v in out["launches"].values()), f"rank {r} launches {out['launches']}")
+    # Every parameter and statistic equal on the ranks to the bit.
+    mine = _fingerprint(t for m in trainer._modules().values() for t in m.state_dict().values())
+    theirs = parallel.all_gather_rows(mine[None])
+    out["equal_to_the_bit"] = bool(all(torch.equal(theirs[0], t) for t in theirs))
+    out["tensors_compared"] = mine.shape[0]
+    emit(dict(phase="ddp_replicas", rank=r, iterations=DDP_ITERS, tensors=mine.shape[0],
+              equal_to_the_bit=out["equal_to_the_bit"]))
+    require(out["equal_to_the_bit"], f"rank {r}: the ranks' states differ after {DDP_ITERS} iterations")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # 2-encoder: the FFHQ-DS step gradients of the Tensor Transform trainer.
+    trainer = train.Trainer2(train.TrainConfig(), seed=0, co_modulation=TWO_ENC_MODE,
+                             ds_dataset_type="FFHQ", device="cuda")
+    *grads2, out["losses_grads2"] = _held_runs(ops, train, trainer, _two_encoder_grads, two)
+    grads2 = grads2 if r == 0 else None
+    del trainer
+    torch.cuda.empty_cache()
+
+    # The sharded Inception features of 10 images.
+    sharded = make_mesh_feature_fn(inception_net("cuda"))
+    with torch.no_grad():
+        feats = torch.cat([sharded(x) for x in _fid_images().chunk(2)]).cpu()
+    out["collectives_total"] = parallel.STATS
+    parallel.shutdown()
+    del sharded
+    torch.cuda.empty_cache()
+    if r != 0:
+        return 0
+    result = _ddp_one_process(train, out, grads3, grads2, feats)
+    with open(os.path.join(root, "result.json"), "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def _ddp_one_process(train, ddp, grads3, grads2, feats):
+    """Rank 0 after the group: one process on the global batches.  The
+    ranks' gradient sets (``grads3``, ``grads2``: through the kernels,
+    through the plain versions, and in float64, each averaged over the
+    ranks) are held against this process's float64 run, the exact
+    reference: the ranks' kernels against their plain versions by
+    :func:`hold_gradient`, as the gradient phase holds one process's, and
+    the ranks' float64 run within 1e-9 of this one's.  The two float32 runs,
+    which round differently, are compared without a bar.  Then
+    ``DDP_ITERS`` training iterations beside the ranks' losses, and the
+    sharded features against this process's."""
+    from fm3dgan_torch import ops
+    from fm3dgan_torch.tools.nets import inception_net
+
+    three, two = _ddp_gradient_inputs(train.steps, lambda n: slice(0, n))
+    result = dict(ddp=ddp)
+    for name, build, run, inputs, got in (
+            ("ddp_gradients", lambda: train.Trainer(train.TrainConfig(), seed=0, device="cuda"),
+             _three_encoder_grads, three, grads3),
+            ("ddp_two_encoder_gradients",
+             lambda: train.Trainer2(train.TrainConfig(), seed=0, co_modulation=TWO_ENC_MODE,
+                                    ds_dataset_type="FFHQ", device="cuda"),
+             _two_encoder_grads, two, grads2)):
+        trainer = build()
+        one, _, exact, losses = _held_runs(ops, train, trainer, run, inputs, with_plain=False)
+        kernels, plain, ddp64 = got
+        held, fails = _compare_held(kernels, plain, exact)
+        float64_diff = _float64_distance(ddp64, exact)
+        ddp_losses = ddp["losses_grads" if name == "ddp_gradients" else "losses_grads2"]
+        # D's mean scores are logits near 0: printed, not held.
+        loss_rel = {k: abs(ddp_losses[k] - v) / max(abs(v), 1e-30) for k, v in losses.items()
+                    if not k.endswith("_score")}
+        rec = dict(phase=name, world=DDP_WORLD, backend="gloo", **held,
+                   ddp_float64_vs_one_process_float64=float64_diff,
+                   float32_ddp_vs_one_process=_float32_distance(kernels, one, exact),
+                   losses=losses, ddp_losses=ddp_losses, ddp_vs_one_process_loss_rel=loss_rel)
+        emit(rec)
+        result[name] = rec
+        require(not fails, f"{name}: {len(fails)} data-parallel gradients outside their bar, "
+                           f"the first: {fails[:5]}")
+        require(float64_diff[0] <= 1e-9, f"{name}: the ranks' float64 gradients {float64_diff}")
+        require(all(v <= 1e-4 for v in loss_rel.values()), f"{name}: losses {loss_rel}")
+        del one, exact, kernels, plain, ddp64
+        if name == "ddp_gradients":
+            # The same training iterations as one process at batch 16.
+            rows = []
+            for i in range(DDP_ITERS):
+                batch = _train_inputs(DDP_BATCH, 100 + i, trainer.config.is_ds_iter(i))
+                m = trainer.train_iteration(i, *batch)
+                one = {k: float(v) for k, v in m.items() if torch.is_tensor(v)}
+                two_ranks = ddp["iterations"][i]["losses"]
+                rows.append(dict(iteration=i, branch=_branch(trainer, i), one_process=one,
+                                 ranks=two_ranks,
+                                 rel_diff={k: abs(two_ranks[k] - v) / max(abs(v), 1e-30)
+                                           for k, v in one.items()}))
+                emit(dict(phase="ddp_losses", **rows[-1]))
+            # Iteration 0's D, L1, LPIPS and face-ID losses come before any
+            # update of what they read; the rest follow Adam steps, which
+            # carry rounding differences into the weights (no bar).
+            first = rows[0]["rel_diff"]
+            require(all(first[k] <= 1e-4 for k in ("d", "l1", "lpips", "face_id")),
+                    f"iteration 0 losses: {first}")
+            result["ddp_losses"] = rows
+        del trainer
+        torch.cuda.empty_cache()
+    with torch.no_grad():
+        want = inception_net("cuda")(_fid_images()).cpu()
+    err = float((feats - want).abs().max()) / float(want.abs().max())
+    result["ddp_fid_features"] = dict(phase="ddp_fid_features", images=DDP_FID_IMAGES,
+                                      max_rel_diff=err)
+    emit(result["ddp_fid_features"])
+    require(err <= 1e-4, f"sharded FID features {err}")
+    return result
+
+
+def ddp_phase(ops, per_iteration):
+    """Two ranks (gloo over CUDA tensors; NCCL refuses two ranks on one
+    card) started as processes of this script, against one process on the
+    global batch in rank 0 after the group: see :func:`ddp_rank_main`."""
+    root = _ddp_root()
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    with open(os.path.join(root, "per_iteration.json"), "w") as f:
+        json.dump(per_iteration, f)
+    port = _free_port()
+    logs = [open(os.path.join(root, f"rank{r}.log"), "w") for r in range(DDP_WORLD)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--ddp_rank", str(r),
+                               "--ddp_port", str(port)], stdout=logs[r], stderr=subprocess.STDOUT,
+                              cwd=_here())
+             for r in range(DDP_WORLD)]
+    try:
+        t_end = time.perf_counter() + DDP_TIMEOUT
+        for p in procs:
+            p.wait(timeout=max(1.0, t_end - time.perf_counter()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    texts = [open(os.path.join(root, f"rank{r}.log")).read() for r in range(DDP_WORLD)]
+    rcs = [p.returncode for p in procs]
+    for line in texts[0].splitlines():  # rank 0's records
+        if line.startswith("{"):
+            print(line, flush=True)
+    if rcs != [0] * DDP_WORLD:
+        for r, t in enumerate(texts):
+            print(f"--- ddp rank {r} (exit {rcs[r]}) ---\n{t[-6000:]}", flush=True)
+    require(rcs == [0] * DDP_WORLD, f"ddp ranks exited {rcs}")
+    with open(os.path.join(root, "result.json")) as f:
+        result = json.load(f)
+    shutil.rmtree(root, ignore_errors=True)
+    return result
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_module_main(module, argv, stats_path) -> int:
+    """``--run_module``: ``python -m module argv`` in this process with TF32
+    off and cuDNN's deterministic algorithms (the ddp_cli phase's runs take
+    the same algorithms as its one-process run), writing to ``stats_path``
+    each training iteration's ms, kernel launches and collectives
+    (``fm3dgan_torch.parallel.STATS``), and the 3-encoder trainer's
+    parameters whose gradients its D and G steps all-reduce."""
+    import runpy
+
+    from fm3dgan_torch import ops, parallel
+    from fm3dgan_torch.train import Trainer, Trainer2
+    from fm3dgan_torch.train.state import g_enc_modules, named_params
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    records = {"iterations": []}
+
+    def counted(cls):
+        original = cls.train_iteration
+
+        def train_iteration(self, i, *a, **kw):
+            st = self.state
+            if "params" not in records and hasattr(st, "g_enc_opt"):  # the 3-encoder trainer
+                g_named = named_params(g_enc_modules(st.models, self.config))
+                records["params"] = dict(d=sum(p.numel() for p in st.d.parameters()),
+                                         g_and_encoders=sum(p.numel() for _, _, p in g_named))
+            before, stats = ops.launch_counts(), json.loads(json.dumps(parallel.STATS))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = original(self, i, *a, **kw)
+            torch.cuda.synchronize()
+            records["iterations"].append(dict(
+                iteration=i, ms=(time.perf_counter() - t0) * 1e3,
+                launches={k: v - before[k] for k, v in ops.launch_counts().items()},
+                collectives={k: {f: v[f] - stats.get(k, {}).get(f, 0) for f in v}
+                             for k, v in parallel.STATS.items()}))
+            return out
+
+        cls.train_iteration = train_iteration
+
+    counted(Trainer)
+    counted(Trainer2)
+    sys.argv = [module, *argv]
+    try:
+        runpy.run_module(module, run_name="__main__", alter_sys=True)
+        code = 0
+    except SystemExit as e:
+        code = e.code if isinstance(e.code, int) else (0 if e.code is None else 1)
+    with open(stats_path, "w") as f:
+        json.dump(records, f)
+    return code
+
+
+def _module_cmd(module, args, stats, torchrun=False):
+    """``module``'s CLI through :func:`run_module_main`, as one process or
+    under ``torchrun --nproc_per_node 1`` (an NCCL world of one)."""
+    me = [os.path.abspath(__file__), "--run_module", module, "--stats_out", stats, "--", *args]
+    if torchrun:
+        return [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "1",
+                "--master_port", str(_free_port()), *me]
+    return [sys.executable, *me]
+
+
+def _run_logged(cmd, log, timeout=600):
+    with open(log, "w") as f:
+        proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT, cwd=_here())
+        try:
+            rc = proc.wait(timeout=timeout)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    text = open(log).read()
+    if rc != 0:
+        print(f"--- {' '.join(cmd[:8])} ... exited {rc} ---\n{text[-6000:]}", flush=True)
+    require(rc == 0, f"{cmd[:8]} exited {rc}")
+    return text
+
+
+def ddp_cli_phase(ops):
+    """The training CLIs with ``--data_parallel`` under ``torchrun
+    --nproc_per_node 1``: an NCCL world of one at 256 px, full width, fake
+    data.  ``train_3_encoder``: ``DDP_CLI_ITERS`` iterations with a
+    checkpoint after iteration ``DDP_CLI_SAVE``, then a run resumed from it;
+    and the same CLI as one process.  All at lr ``DDP_CLI_LR``: at the
+    default lr, Adam moves a weight whose gradient is rounding residue by lr
+    either way, and BatchNorm's global statistics round otherwise than
+    ``F.batch_norm``.  The losses must agree with the one process's within
+    1e-5 relative, R1 within 1e-4: it is taken after D's first Adam step
+    (an untrained D's R1, about 6e-5, moved by 5.5e-5 relative between the
+    two runs on the card, where the held R1 gradients at one weight set agree
+    within 7.6e-5 in the ddp phase), and the resumed (last) iteration must
+    equal the uninterrupted one to the bit; prints each iteration's ms with
+    and without ``--data_parallel`` (``train_iteration`` alone, between two
+    synchronizes: the loop's overlap of the card with the next batch's load
+    is what ``fm3dgan_torch/tools/loop_timing.py`` measures), its
+    collectives and the bytes it all-reduces beside those the parameters'
+    sizes give.  Then ``train_2_encoder
+    --data_parallel`` 2 iterations and ``fid --data_parallel`` against
+    ``fid``, each a world of one."""
+    import re
+
+    import numpy as np
+
+    from fm3dgan_torch.eval.fid import save_stats
+
+    root = os.path.join(_ddp_root(), "cli")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    m3, m2 = "fm3dgan_torch.tools.train_3_encoder", "fm3dgan_torch.tools.train_2_encoder"
+    base = ["--fake_data", "--training_iters", str(DDP_CLI_ITERS), "--log_every", "1", "--lr",
+            DDP_CLI_LR]
+    # One checkpoint (and its eval line), in the data-parallel run alone.
+    save = ["--model_save_freq", str(DDP_CLI_SAVE)]
+    d = {k: os.path.join(root, k) for k in ("one", "ddp", "ddp_resumed", "two")}
+    stats = {k: os.path.join(root, f"{k}_stats.json") for k in d}
+    rec = dict(phase="ddp_cli", backend="nccl", world=1, lr=float(DDP_CLI_LR),
+               cudnn_deterministic=True)
+    try:
+        t = {}
+        for k, extra, torchrun in (
+                ("one", ["--model_save_freq", str(10 ** 6)], False),
+                ("ddp", ["--data_parallel", *save], True),
+                ("ddp_resumed", ["--data_parallel", *save, "--resume_dir",
+                                 os.path.join(d["ddp"], "ckpt"), "--resume_step",
+                                 str(DDP_CLI_SAVE)], True)):
+            t0 = time.perf_counter()
+            _run_logged(_module_cmd(m3, base + extra + ["--exp_dir", d[k]], stats[k], torchrun),
+                        os.path.join(root, f"{k}.log"))
+            t[k] = time.perf_counter() - t0
+        logs, per_iter = {}, {}
+        for k in ("one", "ddp", "ddp_resumed"):
+            with open(os.path.join(d[k], "training_log.jsonl")) as f:
+                logs[k] = {x["iter"]: x for x in map(json.loads, f) if "iter" in x}
+            with open(stats[k]) as f:
+                per_iter[k] = json.load(f)
+        require(sorted(logs["ddp"]) == list(range(DDP_CLI_ITERS)), f"ddp iterations {sorted(logs['ddp'])}")
+        require(sorted(logs["ddp_resumed"]) == list(range(DDP_CLI_SAVE + 1, DDP_CLI_ITERS)),
+                f"resumed iterations {sorted(logs['ddp_resumed'])}")
+        keys = ("d", "g", "l1", "lpips", "face_id", "r1", "g_reg", "path_length")
+        rec["ddp_vs_one_rel_diff"] = {
+            i: {k: abs(logs["ddp"][i][k] - logs["one"][i][k]) / max(abs(logs["one"][i][k]), 1e-30)
+                for k in keys} for i in range(DDP_CLI_ITERS)}
+        resumed_keys = ("d", "g", "l1", "lpips", "face_id")  # no R1 or PPL in these iterations
+        rec["resumed_diff"] = {i: {k: logs["ddp_resumed"][i][k] - logs["ddp"][i][k]
+                                   for k in resumed_keys}
+                               for i in range(DDP_CLI_SAVE + 1, DDP_CLI_ITERS)}
+        params = per_iter["ddp"]["params"]
+        counted = {"d_step": 4 * params["d"], "g_step": 4 * params["g_and_encoders"]}
+        rec["params"] = params
+        rec["bytes_per_optimizer_step_from_parameters"] = counted
+        rec["iterations"] = [dict(iteration=a["iteration"], ms_data_parallel=a["ms"],
+                                  ms_one_process=b["ms"], collectives=a["collectives"],
+                                  launches=a["launches"], launches_one_process=b["launches"])
+                             for a, b in zip(per_iter["ddp"]["iterations"],
+                                             per_iter["one"]["iterations"])]
+        rec["run_s"] = t
+        first = rec["iterations"][1]  # DS with D_edit, no regulariser: a D and a G step
+        all_reduced = first["collectives"]["all_reduce"]["bytes"]
+        rec["all_reduce_bytes_iteration_1"] = all_reduced
+        rec["all_reduce_bytes_besides_gradients"] = (all_reduced - counted["d_step"]
+                                                     - counted["g_step"])
+        emit(rec)
+        for i, rel in rec["ddp_vs_one_rel_diff"].items():
+            require(all(v <= (1e-4 if k == "r1" else 1e-5) for k, v in rel.items()),
+                    f"ddp CLI iteration {i}: {rel}")
+        require(all(v == 0.0 for x in rec["resumed_diff"].values() for v in x.values()),
+                f"resumed iterations differ: {rec['resumed_diff']}")
+        require(all(it["launches"] == it["launches_one_process"] for it in rec["iterations"]),
+                "the data-parallel iterations launch the kernels otherwise than one process")
+        require(all(v > 0 for v in per_iter["ddp"]["iterations"][0]["launches"].values()),
+                f"ddp CLI launches {per_iter['ddp']['iterations'][0]['launches']}")
+        # The all-reduces carry the D and the G step's gradients, and besides
+        # them the backward of every gather (BatchNorm's statistics,
+        # minibatch stddev's activations), the metrics and the preemption flag.
+        grads_bytes = counted["d_step"] + counted["g_step"]
+        require(grads_bytes <= all_reduced <= grads_bytes * 1.01,
+                f"iteration 1 all-reduced {all_reduced} bytes, the gradients {grads_bytes}")
+
+        # The 2-encoder CLI (2 iterations: reconstruction, DS) and fid with and
+        # without --data_parallel on the checkpoint, side by side, each a world
+        # of one.
+        stats_path = os.path.join(root, "real_stats.pkl")
+        save_stats(stats_path, np.zeros(2048), np.eye(2048))
+        args = ["--ckpt_dir", os.path.join(d["ddp"], "ckpt"), "--step", str(DDP_CLI_SAVE),
+                "--stats", stats_path, "--n_sample", "10", "--batch", "4"]
+        cmds = {"two": _module_cmd(m2, ["--fake_data", "--training_iters", "2", "--log_every",
+                                        "1", "--data_parallel", "--exp_dir", d["two"]],
+                                   stats["two"], torchrun=True),
+                "fid_one": [sys.executable, "-m", "fm3dgan_torch.tools.fid", *args],
+                "fid_ddp": [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+                            "1", "--master_port", str(_free_port()), "-m",
+                            "fm3dgan_torch.tools.fid", *args, "--data_parallel"]}
+        logs_f = {k: open(os.path.join(root, f"{k}.log"), "w") for k in cmds}
+        procs = {k: subprocess.Popen(c, stdout=logs_f[k], stderr=subprocess.STDOUT, cwd=_here())
+                 for k, c in cmds.items()}
+        try:
+            rcs = {k: p.wait(timeout=600) for k, p in procs.items()}
+        finally:
+            for k, p in procs.items():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                logs_f[k].close()
+        texts = {k: open(os.path.join(root, f"{k}.log")).read() for k in cmds}
+        for k, rc in rcs.items():
+            if rc != 0:
+                print(f"--- {k} (exit {rc}) ---\n{texts[k][-4000:]}", flush=True)
+        require(all(rc == 0 for rc in rcs.values()), f"exit codes {rcs}")
+        with open(os.path.join(d["two"], "training_log.jsonl")) as f:
+            two = [x for x in map(json.loads, f) if "iter" in x]
+        require([x["iter"] for x in two] == [0, 1] and all(
+            math.isfinite(v) for x in two for v in x.values() if isinstance(v, float)),
+            f"2-encoder ddp CLI log {two}")
+        with open(stats["two"]) as f:
+            emit(dict(phase="ddp_cli_two_encoder", iterations=json.load(f)["iterations"],
+                      losses=two))
+        fids = {}
+        for k in ("fid_one", "fid_ddp"):
+            found = re.findall(r"^FID \(10 samples\): (\S+)$", texts[k], re.M)
+            require(len(found) == 1, f"{k}: {found}")
+            fids[k] = float(found[0])
+        rec_fid = dict(phase="ddp_cli_fid", fid=fids,
+                       rel_diff=abs(fids["fid_ddp"] - fids["fid_one"]) / abs(fids["fid_one"]))
+        emit(rec_fid)
+        require(rec_fid["rel_diff"] <= 1e-3, f"fid --data_parallel {fids}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return rec
+
+
 # Summary key -> record key, summed per iteration or per forward.
 SUMMED = {"ms": "kernel_ms", "device_ms": "device_ms", "host_us": "host_us",
           "plain_ms": "plain_ms", "bound_ms": "bound_ms", "library_ms": "library_ms",
@@ -1820,7 +2464,7 @@ def _weighted_sums(recs, weight_key):
 
 
 def summary(records, launches, inference_launches, two_encoder_launches, edit_launches,
-            projector_launches):
+            projector_launches, ddp_launches):
     """One line per kernel.  The SUMMED keys are those of one float32
     training iteration without regulariser at batch 16 (the kernel-phase
     records of every training shape, each counted as often as the iteration
@@ -1829,7 +2473,8 @@ def summary(records, launches, inference_launches, two_encoder_launches, edit_la
     ``launches`` counts the float32 training run, ``launches_inference`` one
     batch-8 forward, ``launches_two_encoder`` the 2-encoder training run,
     ``launches_edit`` one batch of the edit CLI, ``launches_projector`` one
-    projector step."""
+    projector step, ``launches_ddp`` rank 0's ``DDP_ITERS`` iterations at batch
+    8 of the global 16."""
     kernels = []
     for name, info in KERNEL_INFO.items():
         recs = [r for r in records if r["kernel"] == name and r["dtype"] == "float32"]
@@ -1842,6 +2487,7 @@ def summary(records, launches, inference_launches, two_encoder_launches, edit_la
             name=name, **info, launches=launches[name],
             launches_two_encoder=two_encoder_launches[name],
             launches_edit=edit_launches[name], launches_projector=projector_launches[name],
+            launches_ddp=ddp_launches[name],
             launches_per_iteration=sum(r["launches_per_iteration"] for r in train_recs),
             launches_inference=inference_launches[name],
             max_abs_err=max(r["max_abs_diff"] for r in recs),
@@ -1860,13 +2506,18 @@ def summary(records, launches, inference_launches, two_encoder_launches, edit_la
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--out", default=None, help="also write every record to this JSON file")
-    args = ap.parse_args()
-
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--run_module"]:  # --run_module M --stats_out S -- args
+        return run_module_main(sys.argv[2], sys.argv[6:], sys.argv[4])
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", default=None, help="also write every record to this JSON file")
+    ap.add_argument("--ddp_rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--ddp_port", type=int, default=None, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.ddp_rank is not None:
+        return ddp_rank_main(args.ddp_rank, args.ddp_port, _ddp_root())
     from fm3dgan_torch import ops, pipeline, train
 
     smi = subprocess.run(
@@ -1980,9 +2631,16 @@ def main() -> int:
     del trainer
     torch.cuda.empty_cache()
     phase("two_encoder_cli", two_encoder_cli_phase, ops)
+    torch.cuda.empty_cache()
+
+    # Data parallelism: two gloo ranks on the card against one process, then
+    # the CLIs in an NCCL world of one.
+    ddp = phase("ddp", ddp_phase, ops, per_iteration)
+    phase("ddp_cli", ddp_cli_phase, ops)
 
     result = summary(records, launches, path["launches"], two_train["launches"],
-                     edit["launches_per_batch"], proj["launches_per_step"])
+                     edit["launches_per_batch"], proj["launches_per_step"],
+                     ddp["ddp"]["launches"])
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

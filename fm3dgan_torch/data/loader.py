@@ -6,6 +6,13 @@ thread-pool prefetching loader producing NHWC numpy batches, and a pure
 ``data_loading`` dispatch implementing the reconstruction / dual-supervision /
 extreme-pose swaps.  ``RandomFakeData`` provides a synthetic source for CI,
 benchmarks, and smoke training.
+
+Under data parallelism every process reads the same seeded epoch order and
+batches of the global size, and loads only the rows it needs of each
+(``rows``: ``loader_rows`` gives them); ``data_loading`` with ``shard``
+then forms the dual-supervision pairs and the extreme-pose slice on global
+row positions and returns the rank's contiguous rows, so that the ranks'
+rows together are what one process loads.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from typing import Callable, Iterator, Optional, Sequence, Tuple
 import numpy as np
 
 from fm3dgan_torch.data.samplers import swap_list_pair
+from fm3dgan_torch.parallel import local_rows
 
 
 class DataLoader:
@@ -26,6 +34,8 @@ class DataLoader:
     index_sampler: callable(rng) -> sequence of dataset indices for one epoch
       (defaults to a random permutation).  Batches stack item tuples into
       tuples of [B, H, W, C] float32 arrays.
+    rows: positions within each batch of ``batch_size`` to load (a data-
+      parallel rank's share, from ``loader_rows``); None loads them all.
     """
 
     def __init__(
@@ -37,9 +47,11 @@ class DataLoader:
         prefetch: int = 2,
         drop_last: bool = True,
         seed: int = 0,
+        rows: Optional[Sequence[int]] = None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.rows = None if rows is None else np.asarray(rows)
         self.index_sampler = index_sampler
         self.rng = np.random.RandomState(seed)
         self.pool = ThreadPoolExecutor(max_workers=num_workers)
@@ -70,6 +82,8 @@ class DataLoader:
                 chunk = idxs[i : i + self.batch_size]
                 if len(chunk) < self.batch_size and self.drop_last:
                     continue
+                if self.rows is not None:
+                    chunk = [chunk[j] for j in self.rows]
                 self._q.put(self._fetch_batch(chunk))
 
     def __iter__(self) -> Iterator[Tuple[np.ndarray, ...]]:
@@ -86,10 +100,12 @@ class RandomFakeData:
     (training_util.py:228-237) is non-trivial.
     """
 
-    def __init__(self, batch_size: int, size: int = 256, seed: int = 0):
+    def __init__(self, batch_size: int, size: int = 256, seed: int = 0,
+                 rows: Optional[Sequence[int]] = None):
         self.batch_size = batch_size
         self.size = size
         self.rng = np.random.RandomState(seed)
+        self.rows = None if rows is None else np.asarray(rows)
 
     def __next__(self):
         b, s = self.batch_size, self.size
@@ -98,10 +114,34 @@ class RandomFakeData:
         border = max(1, s // 8)
         render[:, :border, :, :] = -1.0
         render[:, -border:, :, :] = -1.0
+        if self.rows is not None:
+            return photo[self.rows], render[self.rows]
         return photo, render
 
     def __iter__(self):
         return self
+
+
+def _output_rows(n: int, extreme: bool) -> np.ndarray:
+    """Positions in a loaded batch of ``n`` rows of the rows a DS batch is
+    made from (every row; the even ones for extreme pose)."""
+    return np.arange(n // 2) * 2 if extreme else np.arange(n)
+
+
+def loader_rows(kind: str, n: int, shard: Tuple[int, int]) -> np.ndarray:
+    """The positions a data-parallel rank ``shard`` = (rank, world) loads of
+    each batch of ``n`` rows: its contiguous rows of a reconstruction batch
+    (``kind="rec"``), or of a dual-supervision (``"ds"``) or extreme-pose
+    (``"ep"``) batch the rows its share of the pairs needs, partners
+    included."""
+    if kind == "rec":
+        return np.arange(n)[local_rows(n, *shard)]
+    if kind not in ("ds", "ep"):
+        raise ValueError(f"unknown loader kind {kind!r}")
+    out = _output_rows(n, kind == "ep")
+    out = out[local_rows(len(out), *shard)]
+    swap = np.asarray(swap_list_pair(n))
+    return np.unique(np.concatenate([out, swap[out]]))
 
 
 def data_loading(
@@ -112,6 +152,7 @@ def data_loading(
     extreme_ds_flag: bool = False,
     pure_ffhq_loader=None,
     ds_dataset_type: Optional[str] = None,
+    shard: Optional[Tuple[int, int]] = None,
 ):
     """Per-iteration dispatch (Data_Loading, dataset.py:361-413).
 
@@ -121,20 +162,26 @@ def data_loading(
       * extreme-pose DS: swap, then keep only even indices (photo = normal
         pose, render = extreme pose)
       * ds_dataset_type == 'FFHQ': 5-tuple incl. a pure-FFHQ real batch.
+
+    shard: (rank, world) of a data-parallel rank whose loaders were built
+    with ``loader_rows``; the rank's contiguous rows of the global result.
     """
     if ds_dataset_type is None:
         if not ds_flag:
             g_input, r_input = next(rec_loader)
             return g_input, r_input, g_input.copy()
-        g_input, r_input = next(extreme_loader if extreme_ds_flag else ds_loader)
-        n = g_input.shape[0]
-        swap = swap_list_pair(n)
-        r_input = r_input[swap]
-        g_ref = g_input[swap].copy()
-        if extreme_ds_flag:
-            even = np.arange(n // 2) * 2
-            return g_input[even], r_input[even], g_ref[even]
-        return g_input, r_input, g_ref
+        loader = extreme_loader if extreme_ds_flag else ds_loader
+        g_input, r_input = next(loader)
+        # Pairs and the extreme-pose slice on global positions, then the
+        # rows this process holds (all of them without ``shard``).
+        n = loader.batch_size if shard is not None else g_input.shape[0]
+        out = _output_rows(n, extreme_ds_flag)
+        swap = np.asarray(swap_list_pair(n))
+        src, partner = out, swap[out]
+        if shard is not None:
+            out = out[local_rows(len(out), *shard)]
+            src, partner = (np.searchsorted(loader.rows, p) for p in (out, swap[out]))
+        return g_input[src], r_input[partner], g_input[partner]
 
     if ds_dataset_type == "FFHQ":
         (ffhq_ref,) = next(pure_ffhq_loader)

@@ -1,11 +1,12 @@
 """FID: the Fréchet distance of InceptionV3 pool3 statistics.
 
-Counterpart of ``fm3dgan/eval/fid.py`` on one device: ``calc_fid`` (scipy's
-``sqrtm`` with the eps fallback for a singular product), the statistics and
-their pickle files (``{"mean", "cov"}``, the format the JAX package and the
-reference write), and the features of z-samples.  The statistics and the
-distance are numpy and scipy on the host; the features come from the
-device.
+Counterpart of ``fm3dgan/eval/fid.py``: ``calc_fid`` (scipy's ``sqrtm`` with
+the eps fallback for a singular product), the statistics and their pickle
+files (``{"mean", "cov"}``, the format the JAX package and the reference
+write), the features of z-samples, and their extraction sharded over a
+data-parallel group (``make_sharded_feature_fn``, ``make_mesh_feature_fn``).
+The statistics and the distance are numpy and scipy on the host; the
+features come from the device.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
+
+from fm3dgan_torch import parallel
 
 
 def calc_fid(sample_mean: np.ndarray, sample_cov: np.ndarray, real_mean: np.ndarray,
@@ -72,16 +75,52 @@ def extract_features_from_samples(generator_fn: Callable[[torch.Tensor], torch.T
     return np.concatenate(feats, axis=0)
 
 
+def make_sharded_feature_fn(feature_fn: Callable[[torch.Tensor], torch.Tensor]
+                            ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """images -> features with the images split over the data-parallel
+    group: each rank extracts its rows of the batch (the same batch on every
+    rank) and ``all_gather_rows`` gives every rank the whole [N, F] matrix.
+    The batch must divide over the ranks.  Without a group it is
+    ``feature_fn``."""
+    def run(img: torch.Tensor) -> torch.Tensor:
+        if not parallel.active():
+            return feature_fn(img)
+        return parallel.all_gather_rows(feature_fn(img[parallel.local_rows(img.shape[0])]))
+
+    return run
+
+
+def make_mesh_feature_fn(feature_fn: Callable[[torch.Tensor], torch.Tensor]
+                         ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """:func:`make_sharded_feature_fn` for any batch size: the batch is
+    zero-padded to a multiple of the world size and the padded rows'
+    features trimmed."""
+    sharded = make_sharded_feature_fn(feature_fn)
+
+    def run(img: torch.Tensor) -> torch.Tensor:
+        b = img.shape[0]
+        pad = (-b) % parallel.world_size()
+        if pad:
+            img = torch.cat([img, img.new_zeros((pad, *img.shape[1:]))])
+        return sharded(img)[:b]
+
+    return run
+
+
 def get_model_fid_score(generator_fn: Callable[[torch.Tensor], torch.Tensor],
                         inception_fn: Callable[[torch.Tensor], torch.Tensor],
                         real_stats_path: str, generator: Optional[torch.Generator] = None,
                         latent_dim: int = 512, n_sample: int = 50_000,
-                        batch_size: int = 100) -> float:
+                        batch_size: int = 100, data_parallel: bool = False) -> float:
     """FID of ``n_sample`` z-samples of a z -> image generator against the
     statistics in ``real_stats_path``; z from ``generator`` (default: seed 0
-    on the CPU)."""
+    on the CPU).  With ``data_parallel`` (the JAX function's ``mesh``) every
+    rank generates the images as one process does and the Inception features
+    are sharded over the group (:func:`make_mesh_feature_fn`)."""
     if generator is None:
         generator = torch.Generator().manual_seed(0)
+    if data_parallel:
+        inception_fn = make_mesh_feature_fn(inception_fn)
     features = extract_features_from_samples(generator_fn, inception_fn, latent_dim, n_sample,
                                              batch_size, generator)
     real_mean, real_cov = load_stats(real_stats_path)

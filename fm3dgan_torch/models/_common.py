@@ -5,6 +5,11 @@ state-dict names, and run them through these helpers so that ``dtype``
 (float32 or bfloat16) follows the JAX modules' casts: inputs and weights in
 ``dtype``, BatchNorm in float32 (float64 for float64) with its result cast
 back.
+
+Train-mode BatchNorm under data parallelism (``fm3dgan_torch.parallel``)
+normalises with the statistics of the global batch, as the JAX mesh does:
+the ranks' per-channel counts, means and sums of squared deviations are
+gathered and combined.
 """
 
 from __future__ import annotations
@@ -13,6 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from fm3dgan_torch import parallel
 from fm3dgan_torch.precision import acc
 
 
@@ -38,12 +44,41 @@ def bn(m: nn.BatchNorm2d, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         y = F.batch_norm(xf, m.running_mean.to(xf.dtype), m.running_var.to(xf.dtype), weight, bias,
                          False, 0.0, m.eps)
         return y.to(x.dtype)
-    y = F.batch_norm(xf, None, None, weight, bias, True, 0.0, m.eps)
+    if parallel.active():
+        y, mean, var = _global_batch_norm(xf, weight, bias, m.eps)
+    else:
+        y = F.batch_norm(xf, None, None, weight, bias, True, 0.0, m.eps)
+        var, mean = torch.var_mean(xf.detach(), dim=(0, 2, 3), unbiased=False)
     with torch.no_grad():
-        var, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
         m.running_mean.mul_(FLAX_MOMENTUM).add_(mean, alpha=1.0 - FLAX_MOMENTUM)
         m.running_var.mul_(FLAX_MOMENTUM).add_(var, alpha=1.0 - FLAX_MOMENTUM)
     return y.to(x.dtype)
+
+
+def _global_batch_norm(xf, weight, bias, eps):
+    """Batch statistics over every rank's rows, differentiable to any order:
+    each rank's count, per-channel mean and sum of squared deviations (its
+    own two-pass statistics) gathered in one ``all_gather_rows``, and
+    combined on every rank in rank order (Chan et al.'s pairwise update),
+    to the global mean and biased variance.  Returns (y, mean, var).
+
+    One all-reduce of the sums and sums of squares would move as many
+    bytes, but its variance E[x^2] - E[x]^2 cancels in float32: over the
+    40 BatchNorm calls of the 2-encoder encoders on 2 ranks it puts the
+    normalised output 5.7e-7 from float64 on the global batch, this
+    combination 1.5e-7 and ``F.batch_norm`` 9.8e-8
+    (``tests/test_torch_ddp_ops.py``)."""
+    c = xf.shape[1]
+    n = xf.numel() // c
+    var, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
+    stats = parallel.all_gather_rows(torch.cat([xf.new_full((1,), n), mean, var * n])[None])
+    counts, means, m2 = stats[:, :1], stats[:, 1:1 + c], stats[:, 1 + c:]
+    total = counts.sum()
+    mean = (counts * means).sum(0) / total
+    var = (m2 + counts * (means - mean).square()).sum(0) / total
+    scale = torch.rsqrt(var + eps) * weight
+    y = (xf - mean[:, None, None]) * scale[:, None, None] + bias[:, None, None]
+    return y, mean.detach(), var.detach()
 
 
 def prelu(m: nn.PReLU, x: torch.Tensor) -> torch.Tensor:

@@ -18,6 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from fm3dgan_torch import parallel
 from fm3dgan_torch.ops import blur, downsample2x, fused_leaky_relu, make_kernel, upsample2x
 from fm3dgan_torch.precision import acc_dtype
 
@@ -227,11 +228,17 @@ class ResBlock(nn.Module):
 
 def minibatch_stddev(x: torch.Tensor, group_size: int = 4, num_features: int = 1) -> torch.Tensor:
     """Append the per-group mean feature stddev as extra channels (NCHW): the
-    reference's group reshape [G, N/G, F, C/F, H, W], biased variance, +1e-8."""
+    reference's group reshape [G, N/G, F, C/F, H, W], biased variance, +1e-8.
+    Under data parallelism the groups are those of the global batch: the
+    rows are gathered over the ranks and each rank keeps its rows of the
+    stddev channels."""
     n, c, h, w = x.shape
-    group = min(n, group_size)
-    y = x.reshape(group, -1, num_features, c // num_features, h, w)
+    full = parallel.all_gather_rows(x)
+    group = min(full.shape[0], group_size)
+    y = full.reshape(group, -1, num_features, c // num_features, h, w)
     stddev = torch.sqrt(y.var(0, unbiased=False) + 1e-8)
     stddev = stddev.mean(dim=(2, 3, 4), keepdim=True).squeeze(2)  # [N/G, F, 1, 1]
     stddev = stddev.repeat(group, 1, h, w)
+    if full.shape[0] != n:
+        stddev = stddev[parallel.local_rows(full.shape[0])]
     return torch.cat([x, stddev.to(x.dtype)], dim=1)

@@ -19,6 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from fm3dgan_torch import parallel
 from fm3dgan_torch.nn.layers import Blur, EqualLinear, FusedLeakyReLU, Upsample
 from fm3dgan_torch.precision import acc_dtype
 
@@ -89,7 +90,8 @@ class NoiseInjection(nn.Module):
                 generator: Optional[torch.Generator] = None):
         if noise is None:
             n, _, h, w = image.shape
-            noise = torch.randn(
+            # Under data parallelism: the rank's rows of the global batch's draw.
+            noise = parallel.randn_rows(
                 (n, 1, h, w), generator=generator, device=image.device, dtype=image.dtype
             )
         return image + self.weight.to(image.dtype) * noise.to(image.dtype)

@@ -117,8 +117,11 @@ def build_all() -> float:
             out = _lib_path(name)
             if os.path.exists(out):
                 continue
+            # Each process builds aside, library and log, and renames them
+            # when done: processes that build at once (data-parallel ranks)
+            # neither interleave nor truncate each other's files.
             tmp = f"{out}.{os.getpid()}.tmp"
-            log = open(os.path.join(BUILD_DIR, f"{name}.log"), "w")
+            log = open(f"{tmp}.log", "w")
             cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
             procs.append((name, out, tmp, log, subprocess.Popen(
                 cmd, stdout=log, stderr=subprocess.STDOUT)))
@@ -127,14 +130,13 @@ def build_all() -> float:
             rc = proc.wait()
             log.close()
             if rc != 0:
-                failed.append(name)
+                failed.append((name, open(log.name).read()))
             else:
                 os.replace(tmp, out)
+            os.replace(log.name, os.path.join(BUILD_DIR, f"{name}.log"))
         if failed:
-            logs = "\n".join(
-                open(os.path.join(BUILD_DIR, f"{n}.log")).read() for n in failed
-            )
-            raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
+            logs = "\n".join(text for _, text in failed)
+            raise RuntimeError(f"nvcc failed for {[n for n, _ in failed]}:\n{logs}")
         for name in SOURCES:
             lib = ctypes.CDLL(_lib_path(name))
             for fn, argtypes in SIGNATURES[name].items():

@@ -24,8 +24,14 @@ or SIGINT it checkpoints the finished iteration and exits 0; its divergence
 guard counts consecutive log lines whose |g| or |l1| is non-finite or above
 ``--divergence_threshold`` and at ``2 * log_every`` of them writes
 ``{iter:06d}.pt`` and exits 3.  Like the JAX CLI it writes no sample grids
-and runs no evaluation; the JAX CLI's mesh and multi-host flags are not
-ported yet.
+and runs no evaluation.
+
+``--data_parallel`` (under ``torchrun --nproc_per_node N -m
+fm3dgan_torch.tools.train_2_encoder``) and ``--multihost`` with the
+coordinator flags are the 3-encoder CLI's: the config's batches are global
+(per process with ``--multihost``), each process runs the iteration, the
+FFHQ steps included, on its rows of them, and rank 0 writes the log and the
+checkpoints.
 """
 
 from __future__ import annotations
@@ -38,10 +44,13 @@ from typing import List, Optional
 from fm3dgan_torch.pipeline.forward import CO_MODULATION_MODE, MODULATION_ENCODING
 from fm3dgan_torch.tools.common import (
     add_config_flags,
+    add_parallel_flags,
     config_from_args,
     downsample_ref,
+    init_parallel,
     parse_bool,
     resolve_cache,
+    run_in_group,
     train_loop,
 )
 from fm3dgan_torch.train.loop2 import DS_DATASET_TYPES, Trainer2
@@ -82,6 +91,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--mod_encode", default="Render Image", choices=MODULATION_ENCODING)
     p.add_argument("--co_mod", default=None, choices=CO_MODULATION_MODE)
     p.add_argument("--ds_dataset_type", default="Synthetic", choices=DS_DATASET_TYPES)
+    add_parallel_flags(p)
     return p
 
 
@@ -97,15 +107,27 @@ class _EditPairs:
         return photo, edit
 
 
-def make_loaders(args, cfg):
+def make_loaders(args, cfg, shard=None):
     """(reconstruction, dual-supervision, FFHQ reals or None) batch sources;
-    the FFHQ reals are at the generator's size, the rest at the encoders'."""
+    the FFHQ reals are at the generator's size, the rest at the encoders'.
+    With ``shard`` = (rank, world) each loads the rows of the global batches
+    that the rank needs."""
+    from fm3dgan_torch.data.loader import loader_rows
+
     size = args.input_size or cfg.size
+    ffhq_ds = args.ds_dataset_type == "FFHQ"
+
+    def rows(kind, n):
+        return None if shard is None else loader_rows(kind, n, shard)
+
+    # FFHQ editing batches are (photo, render) rows as they come: no pairs.
+    ds_kind = "rec" if ffhq_ds else "ds"
     if args.fake_data:
         from fm3dgan_torch.data import RandomFakeData
 
-        return (RandomFakeData(cfg.rec_batch, size, seed=1), RandomFakeData(cfg.ds_batch, size, seed=2),
-                RandomFakeData(cfg.ds_batch, cfg.size, seed=3))
+        return (RandomFakeData(cfg.rec_batch, size, seed=1, rows=rows("rec", cfg.rec_batch)),
+                RandomFakeData(cfg.ds_batch, size, seed=2, rows=rows(ds_kind, cfg.ds_batch)),
+                RandomFakeData(cfg.ds_batch, cfg.size, seed=3, rows=rows("rec", cfg.ds_batch)))
     from fm3dgan_torch.data import (
         DataLoader,
         EditingDataset,
@@ -116,7 +138,6 @@ def make_loaders(args, cfg):
     )
     from fm3dgan_torch.data.datasets import default_transform, uint8_transform
 
-    ffhq_ds = args.ds_dataset_type == "FFHQ"
     if not (args.rec_data_dir and args.ds_data_dir and (args.ffhq_data_dir or not ffhq_ds)):
         raise SystemExit("give --rec_data_dir and --ds_data_dir (and --ffhq_data_dir for "
                          "--ds_dataset_type FFHQ), or --fake_data")
@@ -126,26 +147,33 @@ def make_loaders(args, cfg):
     rec_set = ReconstructionDataset(os.path.join(args.rec_data_dir, "img"),
                                     os.path.join(args.rec_data_dir, "render_img"),
                                     transform=transform, cache=cache)
-    rec = DataLoader(rec_set, cfg.rec_batch, num_workers=args.n_data_workers)
+    rec = DataLoader(rec_set, cfg.rec_batch, num_workers=args.n_data_workers,
+                     rows=rows("rec", cfg.rec_batch))
     if not ffhq_ds:
         ds_set = SyntheticPairDataset(args.ds_data_dir, transform=transform, cache=cache)
         ds = DataLoader(ds_set, cfg.ds_batch, num_workers=args.n_data_workers,
                         index_sampler=lambda rng: dual_supervision_indices(
-                            len(ds_set), ds_set.n_img_per_id, rng))
+                            len(ds_set), ds_set.n_img_per_id, rng),
+                        rows=rows("ds", cfg.ds_batch))
         return rec, ds, None
     ds_set = EditingDataset(os.path.join(args.ds_data_dir, "img"),
                             os.path.join(args.ds_data_dir, "edit_render_img"),
                             render_image_folder=os.path.join(args.ds_data_dir, "render_img"),
                             train=True, transform=transform, cache=cache)
-    ds = _EditPairs(DataLoader(ds_set, cfg.ds_batch, num_workers=args.n_data_workers))
+    ds = _EditPairs(DataLoader(ds_set, cfg.ds_batch, num_workers=args.n_data_workers,
+                               rows=rows("rec", cfg.ds_batch)))
     ffhq_set = ImageFolderDataset(args.ffhq_data_dir, transform=transform_at(cfg.size), cache=cache)
-    return rec, ds, DataLoader(ffhq_set, cfg.ds_batch, num_workers=args.n_data_workers)
+    return rec, ds, DataLoader(ffhq_set, cfg.ds_batch, num_workers=args.n_data_workers,
+                               rows=rows("rec", cfg.ds_batch))
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_arg_parser().parse_args(argv)
-    cfg = config_from_args(args)
+    cfg, shard = init_parallel(args, config_from_args(args))
+    return run_in_group(shard, lambda: _train(args, cfg, shard))
 
+
+def _train(args, cfg, shard) -> int:
     from fm3dgan_torch.data import data_loading
     from fm3dgan_torch.train.preempt import GracefulShutdown
 
@@ -160,7 +188,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.resume_dir:
         trainer.load_checkpoint(args.resume_dir, args.resume_step)
         start_iter = args.resume_step + 1
-    rec, ds, ffhq = make_loaders(args, cfg)
+    rec, ds, ffhq = make_loaders(args, cfg, shard)
 
     def draw(i):
         """The iteration's raw batches: (photo, render, ref, FFHQ reals or None)."""
@@ -168,7 +196,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             g_input, r_input = next(ds)
             # The reference is the photo itself, at the generator's size.
             return g_input, r_input, g_input, next(ffhq)[0]
-        return (*data_loading(rec, ds, cfg.is_ds_iter(i)), None)
+        return (*data_loading(rec, ds, cfg.is_ds_iter(i), shard=shard), None)
 
     def load_batch(i):
         g_input, r_input, g_ref, ffhq_ref = draw(i)

@@ -29,8 +29,20 @@ On SIGTERM or SIGINT it checkpoints the finished iteration, skips the grid
 and the scores, and exits 0.  Its divergence guard counts consecutive log
 lines whose |g| or |l1| is non-finite or above ``--divergence_threshold``
 (a healthy line resets the count); at ``2 * log_every`` of them it writes
-``{iter:06d}.pt`` and exits 3.  The JAX CLI's mesh and multi-host flags are
-not ported yet.
+``{iter:06d}.pt`` and exits 3.
+
+Data parallelism, one process per card:
+
+    torchrun --nproc_per_node N -m fm3dgan_torch.tools.train_3_encoder --data_parallel ...
+
+runs the single-process iteration on the global batch (the config's batch
+sizes), each process on its rows: BatchNorm, minibatch stddev, the noise and
+the PPL subset follow the global batch, and the gradients are averaged.
+``--multihost`` joins a job across hosts (torchrun's environment, or
+``--coordinator_address host:port --num_processes W --process_id R``) with
+per-process batch sizes in the config.  ``--device cuda`` takes NCCL,
+``--device cpu`` gloo.  Rank 0 writes the log, the grids, the scores and the
+checkpoints, which resume in either kind of run.
 """
 
 from __future__ import annotations
@@ -44,12 +56,16 @@ from typing import List, Optional
 
 import numpy as np
 
+from fm3dgan_torch import parallel
 from fm3dgan_torch.tools.common import (
     add_config_flags,
+    add_parallel_flags,
     config_from_args,
     downsample_ref,
+    init_parallel,
     parse_bool,
     resolve_cache,
+    run_in_group,
     train_loop,
 )
 
@@ -102,17 +118,27 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--log_every", type=int, default=10,
                    help="read the metrics back every N iterations (each read waits for "
                         "the device); 1 logs every iteration as it ends")
+    add_parallel_flags(p)
     return p
 
 
-def make_loaders(args, cfg):
-    """(reconstruction, dual-supervision, extreme-pose or None) batch sources."""
+def make_loaders(args, cfg, shard=None):
+    """(reconstruction, dual-supervision, extreme-pose or None) batch
+    sources; with ``shard`` = (rank, world) each loads the rows of the
+    global batches that the rank needs."""
+    from fm3dgan_torch.data.loader import loader_rows
+
     size = args.input_size or cfg.size
+
+    def rows(kind, n):
+        return None if shard is None else loader_rows(kind, n, shard)
+
     if args.fake_data:
         from fm3dgan_torch.data import RandomFakeData
 
-        return (RandomFakeData(cfg.rec_batch, size, seed=1), RandomFakeData(cfg.ds_batch, size, seed=2),
-                RandomFakeData(cfg.ds_batch * 2, size, seed=3))
+        return (RandomFakeData(cfg.rec_batch, size, seed=1, rows=rows("rec", cfg.rec_batch)),
+                RandomFakeData(cfg.ds_batch, size, seed=2, rows=rows("ds", cfg.ds_batch)),
+                RandomFakeData(cfg.ds_batch * 2, size, seed=3, rows=rows("ep", cfg.ds_batch * 2)))
     from fm3dgan_torch.data import (
         DataLoader,
         ReconstructionDataset,
@@ -129,25 +155,30 @@ def make_loaders(args, cfg):
     rec_set = ReconstructionDataset(os.path.join(args.rec_data_dir, "img"),
                                     os.path.join(args.rec_data_dir, "render_img"),
                                     transform=transform, cache=cache)
-    rec = DataLoader(rec_set, cfg.rec_batch, num_workers=args.n_data_workers)
+    rec = DataLoader(rec_set, cfg.rec_batch, num_workers=args.n_data_workers,
+                     rows=rows("rec", cfg.rec_batch))
     ds_set = SyntheticPairDataset(args.ds_data_dir, transform=transform, cache=cache)
     ds = DataLoader(ds_set, cfg.ds_batch, num_workers=args.n_data_workers,
                     index_sampler=lambda rng: dual_supervision_indices(
-                        len(ds_set), ds_set.n_img_per_id, rng))
+                        len(ds_set), ds_set.n_img_per_id, rng), rows=rows("ds", cfg.ds_batch))
     ep = None
     if args.ep_data_dir:
         ep_set = SyntheticPairDataset(args.ep_data_dir, transform=transform, cache=cache)
         ep = DataLoader(ep_set, cfg.ds_batch * 2,  # halved by the even-index slice
                         num_workers=args.n_data_workers,
                         index_sampler=lambda rng: extreme_pose_indices(
-                            len(ep_set), ep_set.n_img_per_id, rng))
+                            len(ep_set), ep_set.n_img_per_id, rng),
+                        rows=rows("ep", cfg.ds_batch * 2))
     return rec, ds, ep
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_arg_parser().parse_args(argv)
-    cfg = config_from_args(args)
+    cfg, shard = init_parallel(args, config_from_args(args))
+    return run_in_group(shard, lambda: _train(args, cfg, shard))
 
+
+def _train(args, cfg, shard) -> int:
     from fm3dgan_torch.data import data_loading
     from fm3dgan_torch.train.loop import Trainer
     from fm3dgan_torch.train.preempt import GracefulShutdown
@@ -162,13 +193,17 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.resume_dir:
         trainer.load_checkpoint(args.resume_dir, args.resume_step)
         start_iter = args.resume_step + 1
-    rec, ds, ep = make_loaders(args, cfg)
-    eval_hook = _make_eval_hook(args, cfg, trainer)
+    rec, ds, ep = make_loaders(args, cfg, shard)
+    # Evaluation and grids are rank 0's.
+    eval_hook = _make_eval_hook(args, cfg, trainer) if parallel.is_main() else None
     val_sets = _make_val_sets(args, cfg)
 
+    def draw(i):
+        return data_loading(rec, ds, cfg.is_ds_iter(i), extreme_loader=ep or ds,
+                            extreme_ds_flag=cfg.is_extreme_ds_iter(i), shard=shard)
+
     def load_batch(i):
-        g_input, r_input, g_ref = data_loading(rec, ds, cfg.is_ds_iter(i), extreme_loader=ep or ds,
-                                               extreme_ds_flag=cfg.is_extreme_ds_iter(i))
+        g_input, r_input, g_ref = draw(i)
         return g_input, r_input, downsample_ref(g_ref, cfg.size)
 
     if args.fake_data:
@@ -176,8 +211,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         # batches of the iterations already run, so it reads what the
         # uninterrupted run read.
         for i in range(start_iter):
-            data_loading(rec, ds, cfg.is_ds_iter(i), extreme_loader=ep or ds,
-                         extreme_ds_flag=cfg.is_extreme_ds_iter(i))
+            draw(i)
 
     def on_sample(i, batch):
         if val_sets is not None:

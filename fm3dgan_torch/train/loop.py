@@ -22,6 +22,17 @@ the encoders, both discriminators and g_ema with their BatchNorm buffers,
 the Adam states, the G-step count and the PPL mean) beside the JAX package's
 ``{step:06d}.json``.  The frozen networks are rebuilt, not saved, and the
 PPL subset's host RNG is not saved, as in JAX.
+
+Under data parallelism (a process group from ``fm3dgan_torch.parallel``,
+made before the trainer) each process holds the replicated state and runs
+``train_iteration`` on its contiguous rows of the global batch; the steps
+average the gradients, BatchNorm, minibatch stddev, the noise and the PPL
+mean follow the global batch, and the returned metrics are the global
+batch's.  The PPL subset is drawn over the global batch from the host RNG,
+the same on every rank; its rows are gathered from the ranks' batches and
+each rank keeps its share.  Rank 0 writes checkpoints and every rank waits
+for the file; every rank loads one.  A checkpoint of either kind of run
+resumes in the other.
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from fm3dgan_torch import parallel
 from fm3dgan_torch.models.arcface import ResNetFace18
 from fm3dgan_torch.models.discriminator import Discriminator
 from fm3dgan_torch.models.fan_landmark import FAN
@@ -63,6 +75,8 @@ class TrainerBase:
         self.input_size = input_size or config.size
         self._seed = seed
         self._frozen_state_dicts = frozen_state_dicts or {}
+        # The data-parallel world the trainer runs in (1 without a group).
+        self.world = parallel.world_size()
         # Host RNG for the PPL subset choice, drawn at every PPL iteration.
         self._host_rng = np.random.RandomState(seed)
         self._copy_stream: Optional[torch.cuda.Stream] = None
@@ -106,9 +120,27 @@ class TrainerBase:
                                          dtype=dtype, **kw).to(self.device))
         return tuple(out)
 
+    def _check_replicas(self) -> None:
+        """Under data parallelism, raise unless every rank starts from the
+        same parameters and statistics."""
+        parallel.check_replicas_equal(t for m in self._modules().values()
+                                      for t in m.state_dict().values())
+
+    def _ppl_rows(self, photo: torch.Tensor, render: torch.Tensor, idx: np.ndarray):
+        """The PPL subset ``idx`` (rows of the global batch) of the local
+        batches: without a group their rows; under data parallelism the
+        rank's contiguous share of the subset, taken from the gathered
+        batches (raises unless the subset divides over the ranks)."""
+        if parallel.active():
+            photo, render = parallel.all_gather_rows(photo), parallel.all_gather_rows(render)
+            idx = idx[parallel.local_rows(len(idx))]
+        t = torch.as_tensor(idx, device=photo.device)
+        return photo[t], render[t]
+
     def _ppl_schedule(self, iter_idx: int, batch: int) -> Dict[str, Any]:
-        """The DS, R1 and PPL flags and the PPL subset (consumes the host RNG
-        at PPL iterations, as the JAX trainers do)."""
+        """The DS, R1 and PPL flags and the PPL subset of a global batch of
+        ``batch`` rows (consumes the host RNG at PPL iterations, as the JAX
+        trainers do)."""
         cfg = self.config
         will_g_reg = cfg.use_g_reg and iter_idx % cfg.g_reg_every == 0
         path_bsz = max(1, batch // cfg.path_reg_batch_shrink)
@@ -118,6 +150,21 @@ class TrainerBase:
             idx = np.arange(path_bsz)
         return dict(ds_flag=cfg.is_ds_iter(iter_idx), do_r1=iter_idx % cfg.d_reg_every == 0,
                     will_g_reg=will_g_reg, ppl_idx=idx)
+
+    def _finish_metrics(self, metrics: Dict[str, Any], s: Dict[str, Any], **flags) -> Dict[str, Any]:
+        """The iteration's metrics averaged over the ranks (one all-reduce
+        under data parallelism), with the last R1 and PPL values carried
+        over on iterations without them, and the iteration's flags."""
+        metrics = parallel.mean_metrics(metrics)
+        if s["do_r1"]:
+            self._last_r1 = metrics["r1"]
+        if s["will_g_reg"]:
+            self._last_greg = {"g_reg": metrics["g_reg"], "path_length": metrics["path_length"]}
+        metrics["r1"] = self._last_r1
+        metrics.update(self._last_greg)
+        metrics["ds_flag"] = s["ds_flag"]
+        metrics.update(flags)
+        return metrics
 
     def iteration_generators(self, iter_idx: int) -> Tuple[torch.Generator, ...]:
         """(d, g, ppl) noise generators of one iteration, from (seed, iter)."""
@@ -160,7 +207,15 @@ class TrainerBase:
     def save_checkpoint(self, ckpt_dir: str, step: int) -> str:
         """Write ``{step:06d}.pt`` and its ``.json`` meta file into
         ``ckpt_dir``; returns the checkpoint's path.  The file appears whole
-        or not at all (written aside, then renamed)."""
+        or not at all (written aside, then renamed).  Under data parallelism
+        rank 0 writes it and every rank waits until it has."""
+        path = os.path.join(ckpt_dir, f"{step:06d}.pt")
+        if parallel.is_main():
+            self._write_checkpoint(ckpt_dir, step, path)
+        parallel.barrier()
+        return path
+
+    def _write_checkpoint(self, ckpt_dir: str, step: int, path: str) -> None:
         st = self.state
         ckpt: Dict[str, Any] = {k: m.state_dict() for k, m in self._modules().items()}
         ckpt.update({k: getattr(st, k).state_dict() for k in self.OPTIMIZERS
@@ -169,12 +224,10 @@ class TrainerBase:
         if hasattr(st, "step"):
             ckpt["step"] = st.step
         os.makedirs(ckpt_dir, exist_ok=True)
-        path = os.path.join(ckpt_dir, f"{step:06d}.pt")
         torch.save(ckpt, path + ".tmp")
         os.replace(path + ".tmp", path)
         with open(os.path.join(ckpt_dir, f"{step:06d}.json"), "w") as f:
             json.dump({"step": step, **self._meta()}, f)
-        return path
 
     def load_checkpoint(self, ckpt_dir: str, step: int) -> None:
         """Load ``{step:06d}.pt`` into this trainer's state, in place."""
@@ -223,6 +276,7 @@ class Trainer(TrainerBase):
             # The stem and the depth-4 hourglass halve the input six times.
             raise ValueError(f"fan_input_size {fan_input_size} must be a multiple of 64 px")
         self.state = self._create_state(DTYPES[config.compute_dtype], seed)
+        self._check_replicas()
 
     def _create_state(self, dtype: torch.dtype, seed: int) -> TrainState:
         config = self.config
@@ -268,10 +322,11 @@ class Trainer(TrainerBase):
 
     def train_iteration(self, iter_idx: int, photo, render, ref) -> Dict[str, Any]:
         """One iteration on NHWC batches (uint8, or float in [-1, 1]; numpy,
-        or tensors from :meth:`stage_batch`)."""
+        or tensors from :meth:`stage_batch`): the whole batch, or under data
+        parallelism this rank's rows of it."""
         cfg, state = self.config, self.state
         photo, render, ref = (steps.prepare_batch(a, self.device) for a in (photo, render, ref))
-        s = self.schedule(iter_idx, photo.shape[0])
+        s = self.schedule(iter_idx, photo.shape[0] * self.world)
         d_gen, g_gen, ppl_gen = self.iteration_generators(iter_idx)
         metrics: Dict[str, Any] = {}
         if cfg.share_dg_noise:
@@ -279,25 +334,19 @@ class Trainer(TrainerBase):
                 state, cfg, photo, render, ref, s["use_edit"], s["ds_flag"], s["extreme"],
                 s["do_r1"], d_gen, apply_ema=not s["will_g_reg"], apply_hmap=s["apply_hmap"],
             ))
-            if s["do_r1"]:
-                self._last_r1 = metrics["r1"]
         else:
             metrics.update(steps.d_step(state, cfg, photo, render, ref, s["use_edit"], d_gen))
             if s["do_r1"]:
-                self._last_r1 = steps.d_reg_step(state, cfg, ref, s["use_edit"])["r1"]
+                metrics.update(steps.d_reg_step(state, cfg, ref, s["use_edit"]))
             metrics.update(steps.g_step(
                 state, cfg, photo, render, ref, s["use_edit"], s["ds_flag"], s["extreme"], g_gen,
                 apply_ema=not s["will_g_reg"], apply_hmap=s["apply_hmap"],
             ))
         if s["will_g_reg"]:
-            idx = torch.as_tensor(s["ppl_idx"], device=self.device)
-            m = steps.g_reg_step(state, cfg, photo[idx], render[idx], ppl_gen, apply_ema=True)
-            self._last_greg = {"g_reg": m["g_reg"], "path_length": m["path_length"]}
-        metrics["r1"] = self._last_r1
-        metrics.update(self._last_greg)
-        metrics["ds_flag"] = s["ds_flag"]
-        metrics["extreme_ds_flag"] = s["extreme"]
-        return metrics
+            p_sub, r_sub = self._ppl_rows(photo, render, s["ppl_idx"])
+            m = steps.g_reg_step(state, cfg, p_sub, r_sub, ppl_gen, apply_ema=True)
+            metrics.update(g_reg=m["g_reg"], path_length=m["path_length"])
+        return self._finish_metrics(metrics, s, extreme_ds_flag=s["extreme"])
 
     # ---------------- checkpoints --------------------------------------------
 

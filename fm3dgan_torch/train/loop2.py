@@ -20,6 +20,8 @@ D_ffhq ``seed + 2``, LPIPS ``seed + 3``, ArcFace ``seed + 4``.  A checkpoint
 is ``{step:06d}.pt`` (G, both encoders, D, D_ffhq and g_ema with their
 buffers, the three Adam states and the PPL mean) beside the JAX package's
 ``{step:06d}.json`` with the co-modulation mode and the modulation input.
+Data parallelism is the 3-encoder trainer's (``loop.py``), the FFHQ steps
+included: each rank runs them on its rows of the global batch.
 """
 
 from __future__ import annotations
@@ -72,6 +74,7 @@ class Trainer2(TrainerBase):
         self.ds_dataset_type = ds_dataset_type
         self._use_lpips, self._use_arcface = use_lpips, use_arcface
         self.state = self._create_state(torch.float32)
+        self._check_replicas()
 
     def _create_state(self, dtype: torch.dtype) -> TrainState2:
         config = self.config
@@ -105,10 +108,11 @@ class Trainer2(TrainerBase):
     def train_iteration(self, iter_idx: int, photo, render, ref, ffhq_ref=None) -> Dict[str, Any]:
         """One iteration on NHWC batches (uint8, or float in [-1, 1]; numpy,
         or tensors from :meth:`stage_batch`).  ``ffhq_ref``, FFHQ photos at
-        the generator's size, is needed on FFHQ dual-supervision iterations."""
+        the generator's size, is needed on FFHQ dual-supervision iterations.
+        Under data parallelism every batch is this rank's rows."""
         cfg, st, enc = self.config, self.state, self.mod_encode
         photo, render, ref = (steps.prepare_batch(a, self.device) for a in (photo, render, ref))
-        s = self.schedule(iter_idx, photo.shape[0])
+        s = self.schedule(iter_idx, photo.shape[0] * self.world)
         metrics: Dict[str, Any] = {}
         if s["ffhq"]:
             if ffhq_ref is None:
@@ -124,22 +128,17 @@ class Trainer2(TrainerBase):
             metrics.update(steps2.shared_iteration(st, cfg, photo, render, ref, enc, s["ds_flag"],
                                                    s["do_r1"], d_gen,
                                                    apply_ema=not s["will_g_reg"]))
-            if s["do_r1"]:
-                self._last_r1 = metrics["r1"]
         else:
             metrics.update(steps2.d_step(st, cfg, photo, render, ref, enc, d_gen))
             if s["do_r1"]:
-                self._last_r1 = steps2.d_reg_step(st, cfg, ref)["r1"]
+                metrics.update(steps2.d_reg_step(st, cfg, ref))
             metrics.update(steps2.g_step(st, cfg, photo, render, ref, enc, s["ds_flag"], g_gen,
                                          apply_ema=not s["will_g_reg"]))
         if s["will_g_reg"]:
-            idx = torch.as_tensor(s["ppl_idx"], device=self.device)
-            m = steps2.g_reg_step(st, cfg, photo[idx], render[idx], enc, ppl_gen, apply_ema=True)
-            self._last_greg = {"g_reg": m["g_reg"], "path_length": m["path_length"]}
-        metrics["r1"] = self._last_r1
-        metrics.update(self._last_greg)
-        metrics["ds_flag"] = s["ds_flag"]
-        return metrics
+            p_sub, r_sub = self._ppl_rows(photo, render, s["ppl_idx"])
+            m = steps2.g_reg_step(st, cfg, p_sub, r_sub, enc, ppl_gen, apply_ema=True)
+            metrics.update(g_reg=m["g_reg"], path_length=m["path_length"])
+        return self._finish_metrics(metrics, s)
 
     # ---------------- checkpoints --------------------------------------------
 

@@ -8,6 +8,12 @@ exits 0, so a supervisor can restart it with ``--resume_dir/--resume_step``.
 A second signal restores the previous handler and re-raises, so a shutdown
 stuck in a device sync can still be interrupted.  ``restore()`` puts the
 previous handlers back when the loop ends.
+
+Under data parallelism a signal may reach one rank only: ``agreed()``
+all-reduces the flag (max) every iteration over the host's gloo group (no
+wait for the card), so every rank leaves the loop after the same
+iteration, and the final checkpoint is rank 0's, which the others wait for.  Without the agreement one rank would leave while the
+others wait for it in a collective.
 """
 
 from __future__ import annotations
@@ -16,6 +22,8 @@ import json
 import os
 import signal
 import sys
+
+from fm3dgan_torch import parallel
 
 
 class GracefulShutdown:
@@ -39,6 +47,10 @@ class GracefulShutdown:
               "current iteration", file=sys.stderr, flush=True)
         signal.signal(signum, self._prev.get(signum, signal.SIG_DFL))
 
+    def agreed(self) -> bool:
+        """Whether a signal reached this or any other rank."""
+        return parallel.any_rank(self.requested)
+
     def restore(self) -> None:
         """Reinstall the handlers that were in place before this object."""
         for s, prev in self._prev.items():
@@ -48,11 +60,13 @@ class GracefulShutdown:
     def checkpoint_and_exit(self, trainer, ckpt_dir: str, step: int, logf=None) -> None:
         """Save a final checkpoint (unless the periodic save just wrote this
         step) and say how to resume.  Returns normally; the caller leaves its
-        loop and exits 0."""
-        if not os.path.exists(os.path.join(ckpt_dir, f"{step:06d}.pt")):
+        loop and exits 0.  Under data parallelism every rank calls it and
+        rank 0 decides whether the checkpoint exists."""
+        if not parallel.broadcast_flag(os.path.exists(os.path.join(ckpt_dir, f"{step:06d}.pt"))):
             trainer.save_checkpoint(ckpt_dir, step)
         if logf is not None:
             logf.write(json.dumps({"preempted_at": step, "signal": self.signum}) + "\n")
             logf.flush()
-        print(f"[preempt] checkpoint saved at iter {step}; resume with --resume_dir "
-              f"{os.path.abspath(ckpt_dir)} --resume_step {step}", flush=True)
+        if parallel.is_main():
+            print(f"[preempt] checkpoint saved at iter {step}; resume with --resume_dir "
+                  f"{os.path.abspath(ckpt_dir)} --resume_step {step}", flush=True)

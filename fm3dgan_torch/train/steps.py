@@ -20,6 +20,12 @@ float tensors in [-1, 1] on the models' device (:func:`prepare_batch` makes
 them from NHWC uint8 or float batches).  Noise comes from the generator's
 fixed buffers when ``noise_generator`` is None (JAX ``rng=None``), else from
 that ``torch.Generator``.
+
+Under data parallelism (``fm3dgan_torch.parallel``) each process runs the
+steps on its rows of the global batch: the ``*_grads`` halves return the
+gradients of the rank's mean losses, and every apply averages them over the
+ranks first, which gives the gradient of the global batch's mean loss, as
+the JAX mesh computes it.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn as nn
 
+from fm3dgan_torch import parallel
 from fm3dgan_torch.losses.gan import d_logistic_loss, d_r1_penalty, g_nonsaturating_loss
 from fm3dgan_torch.losses.geometry import face_regional_loss, heat_map_loss
 from fm3dgan_torch.losses.path_reg import path_regularize
@@ -89,6 +96,9 @@ def _grads_by_name(named, loss) -> Grads:
 
 
 def _apply(opt: torch.optim.Optimizer, named, grads: Grads) -> None:
+    """Adam on ``grads``; under data parallelism on their average over the
+    ranks (the gradient of the global batch's mean loss)."""
+    grads = parallel.average_gradients(grads)
     for k, n, p in named:
         p.grad = grads[k][n]
     opt.step()
