@@ -127,7 +127,19 @@ Builds the hand-written CUDA kernels of ``fm3dgan_torch`` from
     resumed iterations equal to the bit, ms per iteration with and without
     ``--data_parallel``, collectives and bytes all-reduced per iteration
     against the parameters' sizes; then ``train_2_encoder --data_parallel``
-    (2 iterations) and ``fid --data_parallel`` against ``fid``.
+    (2 iterations) and ``fid --data_parallel`` against ``fid``;
+20. profile phase: ``python -m fm3dgan_torch.tools.profile_train``'s
+    ``main`` at batch 16 in float32 with LPIPS and ArcFace (the
+    ``TrainConfig()`` shapes): the four steps' seconds, then iterations
+    16-18 under ``torch.profiler`` (the device's busy ms per iteration and
+    idle share); ``analyze_trace`` on the trace: device ms per iteration by
+    category, the top device rows, and each kernel's device events equal to
+    its launches over the window, no plain version taken;
+21. bf16_parity phase: ``validate_bf16``'s float32, bfloat16 and again
+    float32 runs at its defaults but 60 iterations a run (64 px, 128 px
+    inputs, batch 4, LPIPS and ArcFace), every tracked value finite; its
+    report, and the windowed deviation of the two float32 runs from each
+    other.
 
 Prints one JSON line per measurement and per phase's seconds, the card's
 name and power limit, a ``{"kernels": [...]}`` summary, and last
@@ -183,6 +195,13 @@ FID_SAMPLES = 32
 EXPORT_BATCH = 16
 LANDMARK_IMAGES, LANDMARK_BATCH = 32, 8
 IR_BATCH = 16
+# profile_train at TrainConfig()'s shapes (batch 16, 256 px, LPIPS and ArcFace)
+# in float32; the top device rows kept.
+PROFILE_BATCH, PROFILE_ITERS, PROFILE_TOP = 16, 3, 15
+# validate_bf16's runs: 60 iterations each, not the JAX tool's 100: on an
+# H100 80GB HBM3 (700 W) with a slow host, three runs of 100 took 86 s of
+# the phase's 90 s budget and the whole script 1081 s of its 1200 s.
+BF16_PARITY_ITERS = 60
 
 # (C, R): blur input [N, C, 2R+1, 2R+1] after each upsampling transposed conv.
 BLUR_SHAPES = [(512, 4), (512, 8), (512, 16), (512, 32), (256, 64), (128, 128)]
@@ -2444,6 +2463,134 @@ def ddp_cli_phase(ops):
     return rec
 
 
+@contextlib.contextmanager
+def count_plain_decisions():
+    """Count the wrappers' calls that take the plain version (every wrapper
+    asks ``_build.use_kernel``) while the block runs."""
+    from fm3dgan_torch.ops import _build
+
+    calls = {"plain": 0}
+    original = _build.use_kernel
+
+    def use_kernel(x):
+        on = original(x)
+        calls["plain"] += not on
+        return on
+
+    _build.use_kernel = use_kernel
+    try:
+        yield calls
+    finally:
+        _build.use_kernel = original
+
+
+def profile_phase(ops):
+    """``profile_train``'s ``main`` at TrainConfig()'s shapes in float32 with
+    LPIPS and ArcFace: its step seconds and the traced window's device busy
+    time and idle share; then ``analyze_trace`` on its trace: the device
+    time by category and the top rows per iteration, and each kernel's
+    device events, which must equal the launch counter over the window (its
+    counts set to 0 at the window's first iteration, read after its last).
+    No wrapper may take its plain version, and a trace without device
+    events fails."""
+    from fm3dgan_torch.tools import analyze_trace, profile_train
+
+    out_dir = os.path.join(_here(), "build", "chip_smoke_profile")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    first, last = profile_train.TRACE_START, profile_train.TRACE_START + PROFILE_ITERS - 1
+    window = {}
+    original = profile_train.Trainer.train_iteration
+
+    def train_iteration(self, i, *a):
+        if i == first:
+            ops.reset_launches()
+        out = original(self, i, *a)
+        if i == last:
+            window["launches"] = ops.launch_counts()
+        return out
+
+    buf = io.StringIO()
+    profile_train.Trainer.train_iteration = train_iteration
+    try:
+        with count_plain_decisions() as plain, contextlib.redirect_stdout(buf):
+            rc = profile_train.main(["--batch", str(PROFILE_BATCH), "--dtype", "float32",
+                                     "--iters", str(PROFILE_ITERS), "--out_dir", out_dir])
+        t0 = time.perf_counter()
+        events, path = analyze_trace.load_trace(out_dir)
+        trace_mb = os.path.getsize(path) / 1e6
+        table = analyze_trace.aggregate(events, "gpu")
+        analyze_s = time.perf_counter() - t0
+    finally:
+        profile_train.Trainer.train_iteration = original
+        shutil.rmtree(out_dir, ignore_errors=True)
+    res = json.loads(buf.getvalue().strip().splitlines()[-1])
+    found = analyze_trace.kernel_sums(table)
+    cfg = profile_train.TrainConfig()
+    per_it = 1.0 / PROFILE_ITERS
+    rows = analyze_trace.top_rows(table, PROFILE_TOP)
+    for r in rows:
+        r["ms_per_iteration"] = r.pop("ms") * per_it
+    rec = dict(
+        phase="profile", rc=rc, batch=PROFILE_BATCH, dtype="float32",
+        window=[dict(iteration=i, ds=cfg.is_ds_iter(i), r1=i % cfg.d_reg_every == 0,
+                     ppl=i % cfg.g_reg_every == 0) for i in range(first, last + 1)],
+        step_seconds=res["step_seconds"], trace_mb=trace_mb, analyze_seconds=analyze_s,
+        summary={k: v for k, v in res["profile"].items() if not k.startswith("top_")},
+        top_host_ops=res["profile"]["top_cpu"],
+        device_ms_per_iteration_by_category={
+            c: dict(ms=ms * per_it, events=n * per_it)
+            for c, (ms, n) in analyze_trace.rollup(table).items()},
+        device_ms_per_iteration=sum(v["us"] for v in table.values()) / 1e3 * per_it,
+        top_device_rows=rows, kernel_events=found, launches=window.get("launches"),
+        kernel_device_ms_per_iteration={
+            k: us / 1e3 * per_it for k, us in analyze_trace.kernel_sums(table, "us").items()},
+        plain_decisions=plain["plain"])
+    emit(rec)
+    require(rc == 0, f"profile_train returned {rc}")
+    require(sorted(res["step_seconds"]) == ["d_reg_step", "d_step", "g_reg_step", "g_step"]
+            and all(v > 0 for v in res["step_seconds"].values()), f"step seconds {res}")
+    require(bool(table), "the trace holds no device event (CUDA activity missing)")
+    require(all(found.values()) and found == window["launches"],
+            f"kernel events in the trace {found} != launches over the window {window}")
+    require(plain["plain"] == 0, f"{plain['plain']} wrapper calls took the plain version")
+    return rec
+
+
+def bf16_parity_phase():
+    """``validate_bf16``'s ``run`` in float32, in bfloat16, and in float32
+    once more, at the JAX tool's defaults but ``BF16_PARITY_ITERS``
+    iterations (on the card by default): its
+    report of bfloat16 against the first float32 run, and the same windowed
+    deviation between the two float32 runs, which cuDNN's float32 algorithms
+    make differ: the spread a precision's deviation is read against.  Every
+    tracked value of each run, each iteration's, must be finite.  The
+    deviations are recorded, not barred: the JAX tool sets no bar."""
+    from fm3dgan_torch.tools import validate_bf16
+
+    args = validate_bf16.build_arg_parser().parse_args(["--iters", str(BF16_PARITY_ITERS)])
+    hist, seconds = {}, {}
+    for name, dtype in (("float32", "float32"), ("bfloat16", "bfloat16"),
+                        ("float32_repeat", "float32")):
+        t0 = time.perf_counter()
+        hist[name] = validate_bf16.run(dtype, args)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    repeat = validate_bf16.report(hist["float32"], hist["float32_repeat"])
+    rec = dict(phase="bf16_parity", iters=args.iters, size=args.size, input_size=args.input_size,
+               batch=args.batch, run_seconds=seconds,
+               report=validate_bf16.report(hist["float32"], hist["bfloat16"]),
+               float32_repeat={k: dict(tail_mean=v["bf16_tail_mean"],
+                                       max_windowed_rel_dev=v["max_windowed_rel_dev"])
+                               for k, v in repeat.items() if k in validate_bf16.TRACKED})
+    emit(rec)
+    for name, h in hist.items():
+        for k in validate_bf16.TRACKED:
+            require(len(h[k]) == args.iters and all(math.isfinite(v) for v in h[k]),
+                    f"{name} {k}: {h[k]}")
+    return rec
+
+
 # Summary key -> record key, summed per iteration or per forward.
 SUMMED = {"ms": "kernel_ms", "device_ms": "device_ms", "host_us": "host_us",
           "plain_ms": "plain_ms", "bound_ms": "bound_ms", "library_ms": "library_ms",
@@ -2637,6 +2784,13 @@ def main() -> int:
     # the CLIs in an NCCL world of one.
     ddp = phase("ddp", ddp_phase, ops, per_iteration)
     phase("ddp_cli", ddp_cli_phase, ops)
+    torch.cuda.empty_cache()
+
+    # The profiling tools: a traced TrainConfig() window broken down, then
+    # bf16 training against float32.
+    phase("profile", profile_phase, ops)
+    torch.cuda.empty_cache()
+    phase("bf16_parity", bf16_parity_phase)
 
     result = summary(records, launches, path["launches"], two_train["launches"],
                      edit["launches_per_batch"], proj["launches_per_step"],

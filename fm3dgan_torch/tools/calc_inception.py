@@ -6,7 +6,10 @@ against.
     python -m fm3dgan_torch.tools.calc_inception --img_dir /data/ffhq_val --out stats.pkl \\
         [--inception_ckpt pt_inception-2015-12-05.pth] [--batch 64] [--n_sample 50000] [--device cpu]
 
-Images are read at 256 px (the reference transform) in name order.
+Images are read at 256 px (the reference transform) in name order.  ``--size``
+is accepted as the JAX tool takes it; there it only shapes the dummy input
+of the random init, and here it changes nothing: the features and the images
+are the same with or without it.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="pytorch-fid InceptionV3 .pth (random init if absent)")
     p.add_argument("--batch", type=int, default=64)
     p.add_argument("--n_sample", type=int, default=50_000)
+    p.add_argument("--size", type=int, default=256,
+                   help="accepted for the JAX tool's command lines; no effect (no image is resized)")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default cuda; cpu to run on the CPU)")
     return p

@@ -51,31 +51,6 @@ MODULE = "fm3dgan_torch.tools.train_3_encoder"
 ALLOCATOR_COUNTS = ("num_device_alloc", "num_device_free", "num_alloc_retries")
 
 
-def _profile_summary(prof, wall_s: float, iterations: int, top: int = 15) -> dict:
-    """Device busy time per iteration (the summed time of the events that
-    ran on the device: kernels, copies, sets; a host op's device time is
-    theirs counted again) against the window's wall time, the device events
-    with the most time and the host ops with the most self time."""
-    from torch.autograd import DeviceType
-
-    events = prof.key_averages()
-    on_device = [e for e in events if e.device_type != DeviceType.CPU]
-    on_host = [e for e in events if e.device_type == DeviceType.CPU]
-
-    def rows(evs, key):
-        ranked = sorted(evs, key=lambda e: getattr(e, key), reverse=True)[:top]
-        return [dict(name=e.key[:120], calls=e.count, self_device_ms=e.self_device_time_total / 1e3,
-                     self_cpu_ms=e.self_cpu_time_total / 1e3) for e in ranked]
-
-    busy_ms = sum(e.self_device_time_total for e in on_device) / 1e3
-    wall_ms = wall_s * 1e3
-    return dict(iterations=iterations, wall_ms_per_iteration=wall_ms / iterations,
-                device_busy_ms_per_iteration=busy_ms / iterations,
-                device_idle_share=1.0 - busy_ms / wall_ms,
-                top_device=rows(on_device, "self_device_time_total"),
-                top_cpu=rows(on_host, "self_cpu_time_total"))
-
-
 def child_main(stats_path: str, argv) -> int:
     """``python -m MODULE argv`` in this process, recording the host clock
     at the entry and the return of every ``Trainer.train_iteration``, the
@@ -87,6 +62,7 @@ def child_main(stats_path: str, argv) -> int:
 
     import torch
 
+    from fm3dgan_torch.tools.profile_train import profile_summary
     from fm3dgan_torch.train.loop import Trainer
 
     window = None
@@ -110,7 +86,7 @@ def child_main(stats_path: str, argv) -> int:
             else:
                 wall = time.perf_counter() - state["t0"]
                 state["prof"].__exit__(None, None, None)
-                rec["profile"] = _profile_summary(state["prof"], wall, window[1] - window[0])
+                rec["profile"] = profile_summary(state["prof"], wall, window[1] - window[0])
         rec["starts"].append(time.perf_counter())
         if torch.cuda.is_available():
             stats = torch.cuda.memory_stats()

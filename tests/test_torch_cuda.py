@@ -1064,3 +1064,42 @@ def test_s3fd_and_backbone_on_card_match_float64(cuda_device):
         rel = max(float((a.double() - b).abs().max() / b.abs().max()) for a, b in pairs)
         print(f"{make.__name__}: float32 vs float64 {rel:.3e}")
         assert rel <= 1e-4, (make.__name__, rel)
+
+
+@pytest.mark.gpu
+def test_profile_train_trace_holds_every_kernel_on_card(cuda_device, tmp_path, monkeypatch):
+    """``profile_train`` at small width (128 px, LPIPS and ArcFace off) on
+    the card: the step seconds, the window's device summary, and a trace in
+    which ``analyze_trace`` finds each of the five kernels as often as the
+    launch counter counts over the traced iteration (16: R1 and PPL)."""
+    import contextlib
+    import functools
+    import io
+    import json
+
+    from fm3dgan_torch.tools import analyze_trace, profile_train
+
+    counts = {}
+    original = profile_train.Trainer.train_iteration
+
+    def train_iteration(self, i, *a):
+        if i == profile_train.TRACE_START:
+            ops.reset_launches()
+        out = original(self, i, *a)
+        counts[i] = ops.launch_counts()
+        return out
+
+    monkeypatch.setattr(profile_train.Trainer, "train_iteration", train_iteration)
+    monkeypatch.setattr(profile_train, "TrainConfig",
+                        functools.partial(TrainConfig, latent=32, width_mult=1 / 16))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert profile_train.main(["--batch", "2", "--size", "128", "--iters", "1", "--no_frozen",
+                                   "--dtype", "float32", "--out_dir", str(tmp_path)]) == 0
+    res = json.loads(buf.getvalue().strip().splitlines()[-1])
+    assert all(v > 0 for v in res["step_seconds"].values()) and len(res["step_seconds"]) == 4
+    assert 0 < res["profile"]["device_busy_ms_per_iteration"] < res["profile"]["wall_ms_per_iteration"]
+    events, _ = analyze_trace.load_trace(str(tmp_path))
+    found = analyze_trace.kernel_sums(analyze_trace.aggregate(events, "gpu"))
+    want = counts[profile_train.TRACE_START]
+    assert all(want.values()) and found == want, (found, want)

@@ -55,7 +55,8 @@ def test_importing_the_port_loads_no_jax():
         "import fm3dgan_torch.tools.quant_eval, fm3dgan_torch.tools.make_dataset_layouts\n"
         "import fm3dgan_torch.tools.export_model, fm3dgan_torch.tools.extract_landmarks\n"
         "import fm3dgan_torch.models.sfd_detector, fm3dgan_torch.parallel\n"
-        "import fm3dgan_torch.tools.loop_timing\n"
+        "import fm3dgan_torch.tools.loop_timing, fm3dgan_torch.tools.profile_train\n"
+        "import fm3dgan_torch.tools.analyze_trace, fm3dgan_torch.tools.validate_bf16\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
     )
