@@ -28,6 +28,7 @@ import torch.nn as nn
 from fm3dgan_torch.models.generator import Generator
 from fm3dgan_torch.models.psp_encoder import GradualStyleEncoder
 from fm3dgan_torch.models.resnet_encoder import ResNet18Encoder
+from fm3dgan_torch.utils.spans import span
 
 MODULATION_ENCODING = ("Render Image", "Photo Image")
 CO_MODULATION_MODE = ("Multiplication", "Concatenation", "Tensor Transform")
@@ -121,6 +122,13 @@ def _combine_w_wplus(w: torch.Tensor, w_plus: torch.Tensor,
     return torch.where(mask, w_b * w_plus, w_b)
 
 
+def _to_device(photo: torch.Tensor, render: torch.Tensor, device):
+    """NHWC inputs -> NCHW contiguous on ``device``."""
+    with span("fm3d.edit.to_device"):
+        return (photo.to(device).permute(0, 3, 1, 2).contiguous(),
+                render.to(device).permute(0, 3, 1, 2).contiguous())
+
+
 def forward_3_encoder(
     models: FaceManipulator,
     photo: torch.Tensor,
@@ -140,22 +148,25 @@ def forward_3_encoder(
     if tsr_encode not in MODULATION_ENCODING:
         raise ValueError(f"tsr_encode must be one of {MODULATION_ENCODING}")
     device = models.device
-    with torch.inference_mode():
-        photo = photo.to(device).permute(0, 3, 1, 2).contiguous()
-        render = render.to(device).permute(0, 3, 1, 2).contiguous()
+    with span("fm3d.edit.forward"), torch.inference_mode():
+        photo, render = _to_device(photo, render, device)
         tsr_input = photo if tsr_encode == "Photo Image" else render
-        encoded_tensor = models.e_tsr(tsr_input)
-        encoded_w = models.e_w(render)
-        encoded_w_plus = models.e_w_plus(photo)
+        with span("fm3d.model.e_tsr"):
+            encoded_tensor = models.e_tsr(tsr_input)
+        with span("fm3d.model.e_w"):
+            encoded_w = models.e_w(render)
+        with span("fm3d.model.e_w_plus"):
+            encoded_w_plus = models.e_w_plus(photo)
         latent = _combine_w_wplus(encoded_w, encoded_w_plus, sliced_layer)
-        image, latent_out = models.generator(
-            input_is_latent=True,
-            latent_styles=[latent],
-            external_input_tensor=encoded_tensor,
-            randomize_noise=noise_generator is not None,
-            noise_generator=noise_generator,
-            return_latent=True,
-        )
+        with span("fm3d.model.generator"):
+            image, latent_out = models.generator(
+                input_is_latent=True,
+                latent_styles=[latent],
+                external_input_tensor=encoded_tensor,
+                randomize_noise=noise_generator is not None,
+                noise_generator=noise_generator,
+                return_latent=True,
+            )
         if use_tanh:
             image = torch.tanh(image)
         image = image.permute(0, 2, 3, 1).contiguous()
@@ -271,17 +282,20 @@ def encode_2_encoder(
         raise ValueError(f"mod_encode must be one of {MODULATION_ENCODING}")
     e_tsr, e_mod, mode = models.tensor_encoder, models.modulation_encoder, models.co_modulation
     if mode is None:
-        if mod_encode == "Render Image":
-            tensor, w = e_tsr(photo, train), e_mod(render, train)
-        else:
-            tensor, w = e_tsr(render, train), e_mod(photo, train)
+        tsr_input, mod_input = (photo, render) if mod_encode == "Render Image" else (render, photo)
+        with span("fm3d.model.e_tensor"):
+            tensor = e_tsr(tsr_input, train)
+        with span("fm3d.model.e_mod"):
+            w = e_mod(mod_input, train)
         return w[:, None, :].repeat(1, models.generator.n_latent, 1), tensor
     tensor = None
-    if mode == "Tensor Transform":
-        tensor, vector = e_tsr(render, train)
-    else:
-        vector = e_tsr(render, train)
-    w_plus = e_mod(photo, train)
+    with span("fm3d.model.e_tensor"):
+        if mode == "Tensor Transform":
+            tensor, vector = e_tsr(render, train)
+        else:
+            vector = e_tsr(render, train)
+    with span("fm3d.model.e_mod"):
+        w_plus = e_mod(photo, train)
     if mode == "Multiplication":
         return _combine_w_wplus(vector, w_plus, sliced_layer), None
     rep = vector[:, None, :].expand(-1, w_plus.shape[1], -1)
@@ -303,18 +317,18 @@ def forward_2_encoder(
     (:func:`encode_2_encoder`).  Noise comes from ``noise_generator`` when
     one is given, else from the generator's fixed buffers."""
     device = models.device
-    with torch.inference_mode():
-        photo = photo.to(device).permute(0, 3, 1, 2).contiguous()
-        render = render.to(device).permute(0, 3, 1, 2).contiguous()
+    with span("fm3d.edit.forward"), torch.inference_mode():
+        photo, render = _to_device(photo, render, device)
         latent, tensor = encode_2_encoder(models, photo, render, mod_encode=mod_encode,
                                           sliced_layer=sliced_layer)
-        image = models.generator(
-            input_is_latent=True,
-            latent_styles=[latent],
-            external_input_tensor=tensor,
-            randomize_noise=noise_generator is not None,
-            noise_generator=noise_generator,
-        )
+        with span("fm3d.model.generator"):
+            image = models.generator(
+                input_is_latent=True,
+                latent_styles=[latent],
+                external_input_tensor=tensor,
+                randomize_noise=noise_generator is not None,
+                noise_generator=noise_generator,
+            )
         if use_tanh:
             image = torch.tanh(image)
         return image.permute(0, 2, 3, 1).contiguous()

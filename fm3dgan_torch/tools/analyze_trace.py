@@ -10,8 +10,17 @@ has only this plane).  A device event carries no shapes: it is joined to the
 ``cpu_op`` that launched it through its ``External id``, or through the
 runtime call that shares its ``correlation``.
 
+``--plane spans`` takes the port's ``fm3d.`` spans (``fm3dgan_torch/utils/
+spans.py``): per span name its count, host ms, the device ms it launched
+(a device event belongs to every span whose interval holds the start of
+its launching op, whatever thread that op ran on, so a backward that
+autograd's thread launches counts toward the step waiting for it) and its
+Python-idle ms (an idle gap between the device's busy intervals, over the
+extent of the trace's events, belongs to every span open at its middle when
+no other ``cpu_op`` is open there on any thread).
+
     python -m fm3dgan_torch.tools.analyze_trace /tmp/fm3dgan_trace [--top 30] \\
-        [--match blur] [--plane gpu|cpu] [--json]
+        [--match blur] [--plane gpu|cpu|spans] [--json]
 
 On stderr: the trace's path, the time and count by category (the port's
 kernels, layout transposes, copies, convolutions, gemms, other; by each
@@ -19,13 +28,14 @@ event's name, and a gemm or other kernel that a convolution op launched is
 a convolution), and the plane's count of ops and total event ms; on stdout
 one line per op name, most time first: total ms, count, category and the
 most frequent launching ops and input shapes (``--json``: the same as JSON
-lines).  Exits 1 when no event of the plane is in the trace, listing the
-categories it has.
+lines; for spans, one line per span name, most host time first).  Exits 1
+when no event of the plane is in the trace, listing the categories it has.
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
 import glob
 import gzip
 import json
@@ -35,6 +45,7 @@ from collections import Counter
 from typing import Dict, List, Optional, Tuple
 
 PLANES = {"gpu": ("kernel", "gpu_memcpy", "gpu_memset"), "cpu": ("cpu_op",)}
+SPAN_PREFIX = "fm3d."
 # The ``__global__`` names of each hand-written kernel (``fm3dgan_torch/ops/
 # csrc``), keyed as ``fm3dgan_torch.ops.launch_counts()``; a trace prints them
 # demangled with their template arguments, so they match as substrings.
@@ -100,11 +111,9 @@ def _self_times(events: List[dict]) -> List[float]:
     return self_us
 
 
-def aggregate(events: List[dict], plane: str) -> Dict[str, dict]:
-    """name -> {"us": total (self) microseconds, "count", "shapes": Counter of
-    "launching op [input dims]", "cats": category -> [us, count]} over the
-    plane's complete events, each event's category from its name and its
-    launching op."""
+def _launching_ops(events: List[dict]) -> Tuple[Dict, Dict]:
+    """(``cpu_op`` by its ``External id``, a runtime call's ``External id``
+    by its ``correlation``)."""
     ops, runtime = {}, {}
     for ev in events:
         args = ev.get("args") or {}
@@ -112,6 +121,24 @@ def aggregate(events: List[dict], plane: str) -> Dict[str, dict]:
             ops[args["External id"]] = ev
         elif ev.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in args:
             runtime[args["correlation"]] = args.get("External id")
+    return ops, runtime
+
+
+def _launching_op(ev: dict, ops: Dict, runtime: Dict) -> dict:
+    """The ``cpu_op`` that launched device event ``ev``, or {}."""
+    args = ev.get("args") or {}
+    ext = args.get("External id")
+    if ext not in ops:
+        ext = runtime.get(args.get("correlation"))
+    return ops.get(ext) or {}
+
+
+def aggregate(events: List[dict], plane: str) -> Dict[str, dict]:
+    """name -> {"us": total (self) microseconds, "count", "shapes": Counter of
+    "launching op [input dims]", "cats": category -> [us, count]} over the
+    plane's complete events, each event's category from its name and its
+    launching op."""
+    ops, runtime = _launching_ops(events)
     cats = PLANES.get(plane, ())
     selected = [ev for ev in events if ev.get("cat") in cats and ev.get("ph") == "X"]
     durations = _self_times(selected) if plane == "cpu" else [float(ev["dur"]) for ev in selected]
@@ -121,19 +148,76 @@ def aggregate(events: List[dict], plane: str) -> Dict[str, dict]:
                                             "cats": {}})
         rec["us"] += dur
         rec["count"] += 1
-        op = ev
-        if ev["cat"] != "cpu_op":
-            args = ev.get("args") or {}
-            ext = args.get("External id")
-            if ext not in ops:
-                ext = runtime.get(args.get("correlation"))
-            op = ops.get(ext) or {}
+        op = ev if ev["cat"] == "cpu_op" else _launching_op(ev, ops, runtime)
         acc = rec["cats"].setdefault(category(ev["name"], op.get("name", "")), [0.0, 0])
         acc[0] += dur
         acc[1] += 1
         dims = (op.get("args") or {}).get("Input Dims")
         if dims:
             rec["shapes"][f"{op['name']} {json.dumps(dims)}"] += 1
+    return table
+
+
+class _Union:
+    """The union of intervals, as sorted disjoint intervals, asked whether
+    it holds a point."""
+
+    def __init__(self, intervals):
+        self.starts: List[float] = []
+        self.ends: List[float] = []
+        for s, e in sorted(intervals):
+            if self.ends and s <= self.ends[-1]:
+                self.ends[-1] = max(self.ends[-1], e)
+            else:
+                self.starts.append(s)
+                self.ends.append(e)
+
+    def holds(self, x: float) -> bool:
+        k = bisect.bisect_right(self.starts, x) - 1
+        return k >= 0 and x <= self.ends[k]
+
+    def total(self) -> float:
+        return sum(e - s for s, e in zip(self.starts, self.ends))
+
+
+def _interval(ev: dict) -> Tuple[float, float]:
+    return float(ev["ts"]), float(ev["ts"]) + float(ev["dur"])
+
+
+def span_table(events: List[dict]) -> Dict[str, dict]:
+    """span name -> {"count", "host_ms", "device_ms", "python_idle_ms"} over
+    the ``fm3d.`` spans, by the rules of the module's docstring (a CPU-only
+    trace: no device ms and no idle)."""
+    complete = [ev for ev in events if ev.get("ph") == "X" and "dur" in ev]
+    host = [ev for ev in complete if ev.get("cat") == "cpu_op"]
+    spans = [ev for ev in host if ev["name"].startswith(SPAN_PREFIX)]
+    device = [ev for ev in complete if ev.get("cat") in PLANES["gpu"]]
+    by_name: Dict[str, List[dict]] = {}
+    for ev in spans:
+        by_name.setdefault(ev["name"], []).append(ev)
+    unions = {name: _Union(_interval(ev) for ev in evs) for name, evs in by_name.items()}
+    table = {name: dict(count=len(evs), host_ms=unions[name].total() / 1e3, device_ms=0.0,
+                        python_idle_ms=0.0) for name, evs in by_name.items()}
+    ops, runtime = _launching_ops(events)
+    for ev in device:
+        op = _launching_op(ev, ops, runtime)
+        if op:
+            for name, union in unions.items():
+                if union.holds(float(op["ts"])):
+                    table[name]["device_ms"] += float(ev["dur"]) / 1e3
+    if device:
+        busy = _Union(_interval(ev) for ev in device)
+        start = min(_interval(ev)[0] for ev in host + device)
+        end = max(_interval(ev)[1] for ev in host + device)
+        others = _Union(_interval(ev) for ev in host if not ev["name"].startswith(SPAN_PREFIX))
+        edges = [start] + [x for se in zip(busy.starts, busy.ends) for x in se] + [end]
+        for s, e in zip(edges[::2], edges[1::2]):
+            mid = 0.5 * (s + e)
+            if e <= s or others.holds(mid):
+                continue
+            for name, union in unions.items():
+                if union.holds(mid):
+                    table[name]["python_idle_ms"] += (e - s) / 1e3
     return table
 
 
@@ -172,7 +256,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--top", type=int, default=30)
     p.add_argument("--match", default=None, help="only ops whose name contains this substring")
     p.add_argument("--plane", default="gpu",
-                   help="gpu: the device's kernels, copies and sets (default); cpu: host ops")
+                   help="gpu: the device's kernels, copies and sets (default); cpu: host ops; "
+                        "spans: the port's fm3d. spans")
     p.add_argument("--json", action="store_true", help="emit JSON lines")
     return p
 
@@ -181,6 +266,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = build_arg_parser().parse_args(argv)
     events, path = load_trace(args.trace_dir)
     print(f"# {path}", file=sys.stderr)
+    if args.plane == "spans":
+        return _print_spans(events, args)
     table = aggregate(events, args.plane)
     if not table:
         print("# categories in the trace:", sorted({str(ev.get("cat")) for ev in events}),
@@ -198,6 +285,28 @@ def main(argv: Optional[List[str]] = None) -> int:
         else:
             print(f"{row['ms']:9.3f} ms x{row['count']:<5d} {row['op']}  "
                   f"{row['shapes'] if row['shapes'] else ''}")
+    return 0
+
+
+def _print_spans(events: List[dict], args) -> int:
+    table = span_table(events)
+    if not table:
+        print("# no fm3d. span in the trace; categories:",
+              sorted({str(ev.get("cat")) for ev in events}), file=sys.stderr)
+        return 1
+    print(f"## spans: {len(table)} names (ms: host, device launched inside, python idle)",
+          file=sys.stderr)
+    names = sorted(table, key=lambda n: -table[n]["host_ms"])
+    if args.match:
+        names = [n for n in names if args.match.lower() in n.lower()]
+    for name in names[:args.top]:
+        rec = table[name]
+        if args.json:
+            print(json.dumps(dict(span=name, **{k: round(v, 3) if isinstance(v, float) else v
+                                               for k, v in rec.items()})))
+        else:
+            print(f"{rec['host_ms']:10.3f} {rec['device_ms']:10.3f} {rec['python_idle_ms']:9.3f} "
+                  f"x{rec['count']:<5d} {name}")
     return 0
 
 

@@ -43,11 +43,23 @@ from fm3dgan_torch.train import TrainConfig, Trainer, steps
 TRACE_START = 16  # the first traced iteration: R1 (every 16) and PPL (every 4)
 
 
+def busy_us(intervals) -> float:
+    """The length of the union of (start, end) intervals: events on two
+    streams that overlap (``stage_batch``'s copies and the compute) count
+    once."""
+    total, reach = 0.0, float("-inf")
+    for start, end in sorted(intervals):
+        if end > reach:
+            total += end - max(start, reach)
+            reach = end
+    return total
+
+
 def profile_summary(prof, wall_s: float, iterations: int, top: int = 15) -> dict:
-    """Device busy time per iteration (the summed time of the events that
-    ran on the device: kernels, copies, sets; a host op's device time is
-    theirs counted again) against the window's wall time, the device events
-    with the most time and the host ops with the most self time."""
+    """Device busy time per iteration (the union of the intervals of the
+    events that ran on the device: kernels, copies, sets) against the
+    window's wall time, the device events with the most time and the host
+    ops with the most self time."""
     from torch.autograd import DeviceType
 
     events = prof.key_averages()
@@ -59,7 +71,8 @@ def profile_summary(prof, wall_s: float, iterations: int, top: int = 15) -> dict
         return [dict(name=e.key[:120], calls=e.count, self_device_ms=e.self_device_time_total / 1e3,
                      self_cpu_ms=e.self_cpu_time_total / 1e3) for e in ranked]
 
-    busy_ms = sum(e.self_device_time_total for e in on_device) / 1e3
+    busy_ms = busy_us((e.time_range.start, e.time_range.end) for e in prof.events()
+                      if e.device_type != DeviceType.CPU) / 1e3
     wall_ms = wall_s * 1e3
     return dict(iterations=iterations, wall_ms_per_iteration=wall_ms / iterations,
                 device_busy_ms_per_iteration=busy_ms / iterations,

@@ -53,6 +53,7 @@ from fm3dgan_torch.pipeline.forward import FaceManipulator, resolve_device
 from fm3dgan_torch.train import steps
 from fm3dgan_torch.train.config import TrainConfig
 from fm3dgan_torch.train.state import TrainState
+from fm3dgan_torch.utils.spans import span
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 OPTIMIZERS = ("g_enc_opt", "d_opt", "d_edit_opt")
@@ -183,17 +184,18 @@ class TrainerBase:
         recorded on the current stream, so its memory is not reused before
         the iteration that reads it has run.  Called right after an iteration
         is enqueued, the copies overlap its compute."""
-        if self.device.type != "cuda":
-            return tuple(torch.as_tensor(a).to(self.device) for a in arrays)
-        if self._copy_stream is None:
-            self._copy_stream = torch.cuda.Stream(self.device)
-        consumer = torch.cuda.current_stream(self.device)
-        with torch.cuda.stream(self._copy_stream):
-            staged = tuple(torch.as_tensor(a).pin_memory().to(self.device, non_blocking=True)
-                           for a in arrays)
-        consumer.wait_stream(self._copy_stream)
-        for t in staged:
-            t.record_stream(consumer)
+        with span("fm3d.train.stage_batch"):
+            if self.device.type != "cuda":
+                return tuple(torch.as_tensor(a).to(self.device) for a in arrays)
+            if self._copy_stream is None:
+                self._copy_stream = torch.cuda.Stream(self.device)
+            consumer = torch.cuda.current_stream(self.device)
+            with torch.cuda.stream(self._copy_stream):
+                staged = tuple(torch.as_tensor(a).pin_memory().to(self.device, non_blocking=True)
+                               for a in arrays)
+            consumer.wait_stream(self._copy_stream)
+            for t in staged:
+                t.record_stream(consumer)
         return staged
 
     # ---------------- checkpoints --------------------------------------------
@@ -325,28 +327,30 @@ class Trainer(TrainerBase):
         or tensors from :meth:`stage_batch`): the whole batch, or under data
         parallelism this rank's rows of it."""
         cfg, state = self.config, self.state
-        photo, render, ref = (steps.prepare_batch(a, self.device) for a in (photo, render, ref))
-        s = self.schedule(iter_idx, photo.shape[0] * self.world)
-        d_gen, g_gen, ppl_gen = self.iteration_generators(iter_idx)
-        metrics: Dict[str, Any] = {}
-        if cfg.share_dg_noise:
-            metrics.update(steps.shared_iteration(
-                state, cfg, photo, render, ref, s["use_edit"], s["ds_flag"], s["extreme"],
-                s["do_r1"], d_gen, apply_ema=not s["will_g_reg"], apply_hmap=s["apply_hmap"],
-            ))
-        else:
-            metrics.update(steps.d_step(state, cfg, photo, render, ref, s["use_edit"], d_gen))
-            if s["do_r1"]:
-                metrics.update(steps.d_reg_step(state, cfg, ref, s["use_edit"]))
-            metrics.update(steps.g_step(
-                state, cfg, photo, render, ref, s["use_edit"], s["ds_flag"], s["extreme"], g_gen,
-                apply_ema=not s["will_g_reg"], apply_hmap=s["apply_hmap"],
-            ))
-        if s["will_g_reg"]:
-            p_sub, r_sub = self._ppl_rows(photo, render, s["ppl_idx"])
-            m = steps.g_reg_step(state, cfg, p_sub, r_sub, ppl_gen, apply_ema=True)
-            metrics.update(g_reg=m["g_reg"], path_length=m["path_length"])
-        return self._finish_metrics(metrics, s, extreme_ds_flag=s["extreme"])
+        with span("fm3d.train.iteration", iter=iter_idx):
+            photo, render, ref = (steps.prepare_batch(a, self.device)
+                                  for a in (photo, render, ref))
+            s = self.schedule(iter_idx, photo.shape[0] * self.world)
+            d_gen, g_gen, ppl_gen = self.iteration_generators(iter_idx)
+            metrics: Dict[str, Any] = {}
+            if cfg.share_dg_noise:
+                metrics.update(steps.shared_iteration(
+                    state, cfg, photo, render, ref, s["use_edit"], s["ds_flag"], s["extreme"],
+                    s["do_r1"], d_gen, apply_ema=not s["will_g_reg"], apply_hmap=s["apply_hmap"],
+                ))
+            else:
+                metrics.update(steps.d_step(state, cfg, photo, render, ref, s["use_edit"], d_gen))
+                if s["do_r1"]:
+                    metrics.update(steps.d_reg_step(state, cfg, ref, s["use_edit"]))
+                metrics.update(steps.g_step(
+                    state, cfg, photo, render, ref, s["use_edit"], s["ds_flag"], s["extreme"],
+                    g_gen, apply_ema=not s["will_g_reg"], apply_hmap=s["apply_hmap"],
+                ))
+            if s["will_g_reg"]:
+                p_sub, r_sub = self._ppl_rows(photo, render, s["ppl_idx"])
+                m = steps.g_reg_step(state, cfg, p_sub, r_sub, ppl_gen, apply_ema=True)
+                metrics.update(g_reg=m["g_reg"], path_length=m["path_length"])
+            return self._finish_metrics(metrics, s, extreme_ds_flag=s["extreme"])
 
     # ---------------- checkpoints --------------------------------------------
 

@@ -36,6 +36,7 @@ from fm3dgan_torch.train import steps_2encoder as steps2
 from fm3dgan_torch.train.config import TrainConfig
 from fm3dgan_torch.train.loop import TrainerBase
 from fm3dgan_torch.train.state import TrainState2
+from fm3dgan_torch.utils.spans import span
 
 DS_DATASET_TYPES = ("Synthetic", "FFHQ")
 
@@ -111,34 +112,35 @@ class Trainer2(TrainerBase):
         the generator's size, is needed on FFHQ dual-supervision iterations.
         Under data parallelism every batch is this rank's rows."""
         cfg, st, enc = self.config, self.state, self.mod_encode
-        photo, render, ref = (steps.prepare_batch(a, self.device) for a in (photo, render, ref))
-        s = self.schedule(iter_idx, photo.shape[0] * self.world)
-        metrics: Dict[str, Any] = {}
-        if s["ffhq"]:
-            if ffhq_ref is None:
-                raise ValueError(f"FFHQ dual-supervision iteration {iter_idx} needs ffhq_ref")
-            ffhq_ref = steps.prepare_batch(ffhq_ref, self.device)
-            metrics.update(steps2.d_ffhq_step(st, cfg, photo, render, ffhq_ref, enc))
-            if s["do_r1"]:
-                metrics.update(steps2.d_ffhq_reg_step(st, cfg, ffhq_ref))
-            m, photo = steps2.g_ffhq_ds_step(st, cfg, photo, render, ref, enc)
-            metrics.update(m)
-        d_gen, g_gen, ppl_gen = self.iteration_generators(iter_idx)
-        if cfg.share_dg_noise:
-            metrics.update(steps2.shared_iteration(st, cfg, photo, render, ref, enc, s["ds_flag"],
-                                                   s["do_r1"], d_gen,
-                                                   apply_ema=not s["will_g_reg"]))
-        else:
-            metrics.update(steps2.d_step(st, cfg, photo, render, ref, enc, d_gen))
-            if s["do_r1"]:
-                metrics.update(steps2.d_reg_step(st, cfg, ref))
-            metrics.update(steps2.g_step(st, cfg, photo, render, ref, enc, s["ds_flag"], g_gen,
-                                         apply_ema=not s["will_g_reg"]))
-        if s["will_g_reg"]:
-            p_sub, r_sub = self._ppl_rows(photo, render, s["ppl_idx"])
-            m = steps2.g_reg_step(st, cfg, p_sub, r_sub, enc, ppl_gen, apply_ema=True)
-            metrics.update(g_reg=m["g_reg"], path_length=m["path_length"])
-        return self._finish_metrics(metrics, s)
+        with span("fm3d.train.iteration", iter=iter_idx):
+            photo, render, ref = (steps.prepare_batch(a, self.device) for a in (photo, render, ref))
+            s = self.schedule(iter_idx, photo.shape[0] * self.world)
+            metrics: Dict[str, Any] = {}
+            if s["ffhq"]:
+                if ffhq_ref is None:
+                    raise ValueError(f"FFHQ dual-supervision iteration {iter_idx} needs ffhq_ref")
+                ffhq_ref = steps.prepare_batch(ffhq_ref, self.device)
+                metrics.update(steps2.d_ffhq_step(st, cfg, photo, render, ffhq_ref, enc))
+                if s["do_r1"]:
+                    metrics.update(steps2.d_ffhq_reg_step(st, cfg, ffhq_ref))
+                m, photo = steps2.g_ffhq_ds_step(st, cfg, photo, render, ref, enc)
+                metrics.update(m)
+            d_gen, g_gen, ppl_gen = self.iteration_generators(iter_idx)
+            if cfg.share_dg_noise:
+                metrics.update(steps2.shared_iteration(st, cfg, photo, render, ref, enc,
+                                                       s["ds_flag"], s["do_r1"], d_gen,
+                                                       apply_ema=not s["will_g_reg"]))
+            else:
+                metrics.update(steps2.d_step(st, cfg, photo, render, ref, enc, d_gen))
+                if s["do_r1"]:
+                    metrics.update(steps2.d_reg_step(st, cfg, ref))
+                metrics.update(steps2.g_step(st, cfg, photo, render, ref, enc, s["ds_flag"], g_gen,
+                                             apply_ema=not s["will_g_reg"]))
+            if s["will_g_reg"]:
+                p_sub, r_sub = self._ppl_rows(photo, render, s["ppl_idx"])
+                m = steps2.g_reg_step(st, cfg, p_sub, r_sub, enc, ppl_gen, apply_ema=True)
+                metrics.update(g_reg=m["g_reg"], path_length=m["path_length"])
+            return self._finish_metrics(metrics, s)
 
     # ---------------- checkpoints --------------------------------------------
 

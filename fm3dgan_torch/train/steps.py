@@ -44,6 +44,7 @@ from fm3dgan_torch.models.fan_landmark import fan_heatmap_fn
 from fm3dgan_torch.pipeline.forward import FaceManipulator, _combine_w_wplus
 from fm3dgan_torch.train.config import TrainConfig
 from fm3dgan_torch.train.state import TrainState, g_enc_modules, named_params
+from fm3dgan_torch.utils.spans import span
 
 Grads = Dict[str, Dict[str, torch.Tensor]]
 
@@ -61,21 +62,25 @@ def prepare_batch(x, device) -> torch.Tensor:
 def encode(models: FaceManipulator, photo, render, config: TrainConfig, train: bool):
     """The three encoders -> (tensor [N, C, 4, 4], latent [N, n_latent, D])."""
     tsr_input = photo if config.tsr_encode == "Photo Image" else render
-    tensor = models.e_tsr(tsr_input, train)
-    w = models.e_w(render, train)
-    w_plus = models.e_w_plus(photo, train)
+    with span("fm3d.model.e_tsr"):
+        tensor = models.e_tsr(tsr_input, train)
+    with span("fm3d.model.e_w"):
+        w = models.e_w(render, train)
+    with span("fm3d.model.e_w_plus"):
+        w_plus = models.e_w_plus(photo, train)
     return tensor, _combine_w_wplus(w, w_plus, config.w_plus_sliced_layer)
 
 
 def generate(models: FaceManipulator, latent, tensor, config: TrainConfig,
              noise_generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    img = models.generator(
-        input_is_latent=True,
-        latent_styles=[latent],
-        external_input_tensor=tensor,
-        randomize_noise=noise_generator is not None,
-        noise_generator=noise_generator,
-    )
+    with span("fm3d.model.generator"):
+        img = models.generator(
+            input_is_latent=True,
+            latent_styles=[latent],
+            external_input_tensor=tensor,
+            randomize_noise=noise_generator is not None,
+            noise_generator=noise_generator,
+        )
     return torch.tanh(img) if config.use_tanh else img
 
 
@@ -98,11 +103,12 @@ def _grads_by_name(named, loss) -> Grads:
 def _apply(opt: torch.optim.Optimizer, named, grads: Grads) -> None:
     """Adam on ``grads``; under data parallelism on their average over the
     ranks (the gradient of the global batch's mean loss)."""
-    grads = parallel.average_gradients(grads)
-    for k, n, p in named:
-        p.grad = grads[k][n]
-    opt.step()
-    opt.zero_grad(set_to_none=True)
+    with span("fm3d.train.apply"):
+        grads = parallel.average_gradients(grads)
+        for k, n, p in named:
+            p.grad = grads[k][n]
+        opt.step()
+        opt.zero_grad(set_to_none=True)
 
 
 def _active_d(state: TrainState, use_edit: bool):
@@ -153,8 +159,10 @@ def d_step_grads(state: TrainState, config: TrainConfig, photo, render, ref, use
 
 
 def d_step(state, config, photo, render, ref, use_edit, noise_generator=None) -> Dict:
-    grads, metrics = d_step_grads(state, config, photo, render, ref, use_edit, noise_generator)
-    _apply_d(state, use_edit, grads)
+    with span("fm3d.train.d_step"):
+        grads, metrics = d_step_grads(state, config, photo, render, ref, use_edit,
+                                      noise_generator)
+        _apply_d(state, use_edit, grads)
     return metrics
 
 
@@ -163,8 +171,9 @@ def d_reg_step_grads(state: TrainState, config: TrainConfig, ref, use_edit: bool
 
 
 def d_reg_step(state, config, ref, use_edit) -> Dict:
-    grads, metrics = d_reg_step_grads(state, config, ref, use_edit)
-    _apply_d(state, use_edit, grads)
+    with span("fm3d.train.d_reg_step"):
+        grads, metrics = d_reg_step_grads(state, config, ref, use_edit)
+        _apply_d(state, use_edit, grads)
     return metrics
 
 
@@ -194,7 +203,8 @@ def g_downstream_losses(fake, d, photo, render, ref, config: TrainConfig, ds_fla
     g_loss = g_nonsaturating_loss(d(fake))
     lpips_term = zero
     if lpips is not None and lpips_l > 0:
-        lpips_term = lpips_l * lpips(fake, ref).mean()
+        with span("fm3d.loss.lpips"):
+            lpips_term = lpips_l * lpips(fake, ref).mean()
     l1 = (config.l1_loss_lambda / shrink) * l1_loss(fake, ref)
     face_id = zero
     if arcface is not None and config.face_id_loss_lambda > 0:
@@ -203,8 +213,9 @@ def g_downstream_losses(fake, d, photo, render, ref, config: TrainConfig, ds_fla
         if id_ref.shape[2] != h:  # encoder inputs larger than G's output: box-downsample
             f = id_ref.shape[2] // h
             id_ref = id_ref.reshape(n, c, h, f, w, f).mean(dim=(3, 5))
-        face_id = config.face_id_loss_lambda * face_identity_loss(
-            fake, id_ref, arcface, config.face_id_loss_type)
+        with span("fm3d.loss.arcface"):
+            face_id = config.face_id_loss_lambda * face_identity_loss(
+                fake, id_ref, arcface, config.face_id_loss_type)
     hmap = zero
     if apply_hmap and fan is not None and config.hmap_loss_lambda > 0:
         hmap = config.hmap_loss_lambda * heat_map_loss(fake, render,
@@ -243,9 +254,10 @@ def _apply_g(state: TrainState, config: TrainConfig, grads: Grads, apply_ema: bo
 
 def g_step(state, config, photo, render, ref, use_edit, ds_flag, extreme_ds_flag,
            noise_generator=None, apply_ema: bool = False, apply_hmap: bool = False) -> Dict:
-    grads, metrics = g_step_grads(state, config, photo, render, ref, use_edit, ds_flag,
-                                  extreme_ds_flag, noise_generator, apply_hmap)
-    _apply_g(state, config, grads, apply_ema)
+    with span("fm3d.train.g_step"):
+        grads, metrics = g_step_grads(state, config, photo, render, ref, use_edit, ds_flag,
+                                      extreme_ds_flag, noise_generator, apply_hmap)
+        _apply_g(state, config, grads, apply_ema)
     return metrics
 
 
@@ -261,14 +273,15 @@ def shared_iteration(state: TrainState, config: TrainConfig, photo, render, ref,
     due, then the G loss on the updated D over the same image, backward
     through the retained graph, Adam, and EMA when ``apply_ema``.  The
     caller runs PPL after it when due, as for the unshared steps."""
-    fake = forward_full(state.models, photo, render, config, noise_generator, train=True)
-    grads, metrics = d_grads_from_fake(state, fake.detach(), ref, use_edit)
-    _apply_d(state, use_edit, grads)
-    if do_r1:
-        metrics.update(d_reg_step(state, config, ref, use_edit))
-    grads, g_metrics = _g_grads_from_fake(state, config, fake, photo, render, ref, use_edit,
-                                          ds_flag, extreme_ds_flag, apply_hmap)
-    _apply_g(state, config, grads, apply_ema)
+    with span("fm3d.train.shared_iteration"):
+        fake = forward_full(state.models, photo, render, config, noise_generator, train=True)
+        grads, metrics = d_grads_from_fake(state, fake.detach(), ref, use_edit)
+        _apply_d(state, use_edit, grads)
+        if do_r1:
+            metrics.update(d_reg_step(state, config, ref, use_edit))
+        grads, g_metrics = _g_grads_from_fake(state, config, fake, photo, render, ref, use_edit,
+                                              ds_flag, extreme_ds_flag, apply_hmap)
+        _apply_g(state, config, grads, apply_ema)
     metrics.update(g_metrics)
     return metrics
 
@@ -293,19 +306,21 @@ def g_reg_step_grads(state: TrainState, config: TrainConfig, photo, render,
 
 def g_reg_step(state, config, photo, render, noise_generator=None, ppl_noise=None,
                apply_ema: bool = False) -> Dict:
-    grads, new_mean, metrics = g_reg_step_grads(state, config, photo, render, noise_generator,
-                                                ppl_noise)
-    _apply(state.g_enc_opt, named_params(g_enc_modules(state.models, config)), grads)
-    state.mean_path_length = new_mean
-    if apply_ema:
-        ema(state, config)
+    with span("fm3d.train.g_reg_step"):
+        grads, new_mean, metrics = g_reg_step_grads(state, config, photo, render,
+                                                    noise_generator, ppl_noise)
+        _apply(state.g_enc_opt, named_params(g_enc_modules(state.models, config)), grads)
+        state.mean_path_length = new_mean
+        if apply_ema:
+            ema(state, config)
     return metrics
 
 
 @torch.no_grad()
 def ema(state: TrainState, config: TrainConfig) -> None:
     """g_ema = decay * g_ema + (1 - decay) * G, over G's parameters."""
-    e: List[torch.Tensor] = list(state.g_ema.parameters())
-    p = list(state.models.generator.parameters())
-    torch._foreach_mul_(e, config.ema_decay)
-    torch._foreach_add_(e, p, alpha=1.0 - config.ema_decay)
+    with span("fm3d.train.ema"):
+        e: List[torch.Tensor] = list(state.g_ema.parameters())
+        p = list(state.models.generator.parameters())
+        torch._foreach_mul_(e, config.ema_decay)
+        torch._foreach_add_(e, p, alpha=1.0 - config.ema_decay)

@@ -43,6 +43,7 @@ from fm3dgan_torch.train import steps
 from fm3dgan_torch.train.config import TrainConfig
 from fm3dgan_torch.train.state import TrainState2, g2_modules, named_params
 from fm3dgan_torch.train.steps import Grads
+from fm3dgan_torch.utils.spans import span
 
 
 def forward_full(models: TwoEncoderModels, photo, render, config: TrainConfig,
@@ -73,8 +74,10 @@ def d_step_grads(state: TrainState2, config: TrainConfig, photo, render, ref, mo
 
 
 def d_step(state, config, photo, render, ref, mod_encode, noise_generator=None) -> Dict:
-    grads, metrics = d_step_grads(state, config, photo, render, ref, mod_encode, noise_generator)
-    _apply_d(state.d_opt, state.d, grads)
+    with span("fm3d.train.d_step"):
+        grads, metrics = d_step_grads(state, config, photo, render, ref, mod_encode,
+                                      noise_generator)
+        _apply_d(state.d_opt, state.d, grads)
     return metrics
 
 
@@ -83,8 +86,9 @@ def d_reg_step_grads(state: TrainState2, config: TrainConfig, ref) -> Tuple[Grad
 
 
 def d_reg_step(state, config, ref) -> Dict:
-    grads, metrics = d_reg_step_grads(state, config, ref)
-    _apply_d(state.d_opt, state.d, grads)
+    with span("fm3d.train.d_reg_step"):
+        grads, metrics = d_reg_step_grads(state, config, ref)
+        _apply_d(state.d_opt, state.d, grads)
     return metrics
 
 
@@ -114,9 +118,10 @@ def g_step_grads(state: TrainState2, config: TrainConfig, photo, render, ref, mo
 
 def g_step(state, config, photo, render, ref, mod_encode, ds_flag, noise_generator=None,
            apply_ema: bool = False) -> Dict:
-    grads, metrics = g_step_grads(state, config, photo, render, ref, mod_encode, ds_flag,
-                                  noise_generator)
-    _apply_g(state, config, grads, apply_ema)
+    with span("fm3d.train.g_step"):
+        grads, metrics = g_step_grads(state, config, photo, render, ref, mod_encode, ds_flag,
+                                      noise_generator)
+        _apply_g(state, config, grads, apply_ema)
     return metrics
 
 
@@ -128,13 +133,14 @@ def shared_iteration(state: TrainState2, config: TrainConfig, photo, render, ref
     the D step on its detached output, R1 when due, then the G loss on the
     updated D over the same image, Adam, and EMA when ``apply_ema``; the
     caller runs PPL after it when due."""
-    fake = forward_full(state.models, photo, render, config, mod_encode, noise_generator)
-    grads, metrics = steps.d_loss_grads(state.d, fake.detach(), ref)
-    _apply_d(state.d_opt, state.d, grads)
-    if do_r1:
-        metrics.update(d_reg_step(state, config, ref))
-    grads, g_metrics = _g_grads_from_fake(state, config, fake, photo, render, ref, ds_flag)
-    _apply_g(state, config, grads, apply_ema)
+    with span("fm3d.train.shared_iteration"):
+        fake = forward_full(state.models, photo, render, config, mod_encode, noise_generator)
+        grads, metrics = steps.d_loss_grads(state.d, fake.detach(), ref)
+        _apply_d(state.d_opt, state.d, grads)
+        if do_r1:
+            metrics.update(d_reg_step(state, config, ref))
+        grads, g_metrics = _g_grads_from_fake(state, config, fake, photo, render, ref, ds_flag)
+        _apply_g(state, config, grads, apply_ema)
     metrics.update(g_metrics)
     return metrics
 
@@ -161,12 +167,13 @@ def g_reg_step_grads(state: TrainState2, config: TrainConfig, photo, render, mod
 
 def g_reg_step(state, config, photo, render, mod_encode, noise_generator=None, ppl_noise=None,
                apply_ema: bool = False) -> Dict:
-    grads, new_mean, metrics = g_reg_step_grads(state, config, photo, render, mod_encode,
-                                                noise_generator, ppl_noise)
-    steps._apply(state.g_opt, _g_named(state), grads)
-    state.mean_path_length = new_mean
-    if apply_ema:
-        steps.ema(state, config)
+    with span("fm3d.train.g_reg_step"):
+        grads, new_mean, metrics = g_reg_step_grads(state, config, photo, render, mod_encode,
+                                                    noise_generator, ppl_noise)
+        steps._apply(state.g_opt, _g_named(state), grads)
+        state.mean_path_length = new_mean
+        if apply_ema:
+            steps.ema(state, config)
     return metrics
 
 
@@ -184,8 +191,9 @@ def d_ffhq_step_grads(state: TrainState2, config: TrainConfig, photo, r_edit, ff
 
 
 def d_ffhq_step(state, config, photo, r_edit, ffhq_ref, mod_encode) -> Dict:
-    grads, metrics = d_ffhq_step_grads(state, config, photo, r_edit, ffhq_ref, mod_encode)
-    _apply_d(state.d_ffhq_opt, state.d_ffhq, grads)
+    with span("fm3d.train.d_ffhq_step"):
+        grads, metrics = d_ffhq_step_grads(state, config, photo, r_edit, ffhq_ref, mod_encode)
+        _apply_d(state.d_ffhq_opt, state.d_ffhq, grads)
     return metrics
 
 
@@ -196,8 +204,9 @@ def d_ffhq_reg_step_grads(state: TrainState2, config: TrainConfig,
 
 
 def d_ffhq_reg_step(state, config, ffhq_ref) -> Dict:
-    grads, metrics = d_ffhq_reg_step_grads(state, config, ffhq_ref)
-    _apply_d(state.d_ffhq_opt, state.d_ffhq, grads)
+    with span("fm3d.train.d_ffhq_reg_step"):
+        grads, metrics = d_ffhq_reg_step_grads(state, config, ffhq_ref)
+        _apply_d(state.d_ffhq_opt, state.d_ffhq, grads)
     return metrics
 
 
@@ -210,8 +219,9 @@ def g_ffhq_ds_step_grads(state: TrainState2, config: TrainConfig, photo, r_edit,
     g_loss = g_nonsaturating_loss(state.d_ffhq(fake))
     face_id = torch.zeros((), device=fake.device)
     if state.arcface is not None and config.face_id_loss_lambda > 0:
-        face_id = config.face_id_loss_lambda * face_identity_loss(
-            fake, g_ref, state.arcface, config.face_id_loss_type)
+        with span("fm3d.loss.arcface"):
+            face_id = config.face_id_loss_lambda * face_identity_loss(
+                fake, g_ref, state.arcface, config.face_id_loss_type)
     grads = steps._grads_by_name(_g_named(state), g_loss + face_id)
     return grads, {"g_ffhq": g_loss.detach(), "face_id_ffhq": face_id.detach()}, fake.detach()
 
@@ -220,6 +230,8 @@ def g_ffhq_ds_step(state, config, photo, r_edit, g_ref, mod_encode) -> Tuple[Dic
     """Steps ``state.g_opt`` (the Adam that ``g_step`` steps next), no EMA;
     returns (losses, the edit that replaces the photo in the iteration's D
     and G steps)."""
-    grads, metrics, fake = g_ffhq_ds_step_grads(state, config, photo, r_edit, g_ref, mod_encode)
-    steps._apply(state.g_opt, _g_named(state), grads)
+    with span("fm3d.train.g_ffhq_ds_step"):
+        grads, metrics, fake = g_ffhq_ds_step_grads(state, config, photo, r_edit, g_ref,
+                                                    mod_encode)
+        steps._apply(state.g_opt, _g_named(state), grads)
     return metrics, fake

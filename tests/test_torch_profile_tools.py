@@ -353,6 +353,88 @@ def test_analyze_trace_hand_built_trace(tmp_path):
     assert rc == 1 and out == "" and "'kernel'" in err and "'cpu_op'" in err
 
 
+def test_analyze_trace_span_plane_of_profile_train(port_profile):
+    """Iteration 16 (R1 and PPL) traced on the CPU: each step once inside
+    the iteration, Adam four times, EMA once, each model once per step,
+    no loss network (``--no_frozen``), and no device time or idle."""
+    rc, out = _stdout(analyze_trace.main, [port_profile["out_dir"], "--plane", "spans", "--json"])
+    assert rc == 0
+    rows = {r["span"]: r for r in map(json.loads, out.strip().splitlines())}
+    models = ("e_tsr", "e_w", "e_w_plus", "generator")
+    assert {k: r["count"] for k, r in rows.items()} == {
+        "fm3d.train.iteration": 1, **{f"fm3d.train.{s}": 1 for s in STEP_NAMES},
+        "fm3d.train.apply": 4, "fm3d.train.ema": 1, **{f"fm3d.model.{m}": 3 for m in models}}
+    steps_ms = sum(rows[f"fm3d.train.{s}"]["host_ms"] for s in STEP_NAMES)
+    assert 0 < steps_ms <= rows["fm3d.train.iteration"]["host_ms"]
+    assert all(r["device_ms"] == 0 and r["python_idle_ms"] == 0 for r in rows.values())
+    assert list(rows) == sorted(rows, key=lambda n: -rows[n]["host_ms"])
+
+
+def test_analyze_trace_span_plane_hand_built(tmp_path):
+    """``_hand_trace`` under two spans on its thread, a D step [0, 235] and
+    a G step [235, 420], and autograd's thread running [350, 410] with a
+    matmul at 360 whose gemm runs at [460, 462].  Device time by the span
+    holding the launching op's start, whatever its thread: the D step's
+    conv, transpose and both blurs (60 us), the G step's gemms (9 us).
+    Python idle: gaps whose middle lies in a span with no other op open:
+    [0, 300] (middle 150, the D step), [340, 350] and [419, 420] (the G
+    step); [354, 400] and [407, 410] lie under autograd's op."""
+    def span(name, ts, dur):
+        return dict(ph="X", cat="cpu_op", name=name, pid=1, tid=1, ts=ts, dur=dur,
+                    args={"External id": 100 + ts})
+
+    def autograd_op(name, ts, dur, ext):
+        return dict(ph="X", cat="cpu_op", name=name, pid=1, tid=2, ts=ts, dur=dur,
+                    args={"External id": ext})
+
+    events = _hand_trace() + [
+        span("fm3d.train.d_step", 0, 235), span("fm3d.train.g_step", 235, 185),
+        autograd_op("autograd::engine::evaluate_function: MmBackward0", 350, 60, 6),
+        autograd_op("aten::mm", 360, 5, 7),
+        dict(ph="X", cat="kernel", name=GEMM, pid=0, tid=7, ts=460, dur=2,
+             args={"External id": 7})]
+    table = analyze_trace.span_table(events)
+    assert table == {
+        "fm3d.train.d_step": dict(count=1, host_ms=pytest.approx(0.235),
+                                  device_ms=pytest.approx(0.06), python_idle_ms=pytest.approx(0.3)),
+        "fm3d.train.g_step": dict(count=1, host_ms=pytest.approx(0.185),
+                                  device_ms=pytest.approx(0.009),
+                                  python_idle_ms=pytest.approx(0.011))}
+    with gzip.open(tmp_path / "t.json.gz", "wt") as f:
+        json.dump({"traceEvents": events}, f)
+    rc, out, err = _run([str(tmp_path), "--plane", "spans", "--top", "1"])
+    assert rc == 0 and "## spans: 2 names" in err
+    assert out.split() == ["0.235", "0.060", "0.300", "x1", "fm3d.train.d_step"]
+    with gzip.open(tmp_path / "t.json.gz", "wt") as f:
+        json.dump({"traceEvents": _hand_trace()}, f)
+    rc, out, err = _run([str(tmp_path), "--plane", "spans"])
+    assert rc == 1 and out == "" and "no fm3d. span" in err
+
+
+def test_profile_summary_counts_overlapping_device_events_once():
+    """Busy time is the union of the device events' intervals: a copy on a
+    side stream [100, 160] under a kernel [120, 220] is 120 us, not 160."""
+    from torch.autograd import DeviceType
+
+    class Ev:
+        def __init__(self, key, device_type, start=0.0, end=0.0, self_us=0.0):
+            self.key, self.device_type, self.count = key, device_type, 1
+            self.time_range = types.SimpleNamespace(start=start, end=end)
+            self.self_device_time_total = self_us if device_type != DeviceType.CPU else 0.0
+            self.self_cpu_time_total = self_us if device_type == DeviceType.CPU else 0.0
+
+    events = [Ev("Memcpy HtoD (Pinned -> Device)", DeviceType.CUDA, 100, 160, 60),
+              Ev("sm90_xmma_fprop_implicit_gemm", DeviceType.CUDA, 120, 220, 100),
+              Ev("aten::cudnn_convolution", DeviceType.CPU, 90, 130, 40)]
+    prof = types.SimpleNamespace(key_averages=lambda: events, events=lambda: events)
+    got = profile_train.profile_summary(prof, wall_s=400e-6, iterations=2)
+    assert got["device_busy_ms_per_iteration"] == pytest.approx(0.06)
+    assert got["device_idle_share"] == pytest.approx(0.7)
+    assert [r["name"] for r in got["top_device"]] == ["sm90_xmma_fprop_implicit_gemm",
+                                                      "Memcpy HtoD (Pinned -> Device)"]
+    assert profile_train.busy_us([(0, 10), (5, 8), (20, 30), (25, 40)]) == 30
+
+
 FIXED_HISTORIES = {
     "float32": {"d": [1.0, 1.2, 0.9, 1.1, 1.0, 0.8, 1.3, 1.05, 0.95], "g": [0.5, 0.0, 0.001] * 3,
                 "l1": [0.3, 0.2], "r1": [0.01] * 9, "g_reg": [], "lpips": [2.0] * 9,
