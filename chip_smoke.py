@@ -514,6 +514,28 @@ def _inputs(batch, size, seed):
     return photo.cuda(), render.cuda()
 
 
+def replay_check(ops, pipeline, models, photo, render):
+    """The graph route at a batch of one pair: three calls with the same
+    inputs (eager, capture and replay, replay), the third held against the
+    plain path at the eager call's tolerance."""
+    forward_3_encoder, stats = pipeline.forward_3_encoder, pipeline.STATS
+    with ops.plain_versions():
+        ref = forward_3_encoder(models, photo, render)
+    before = dict(captures=stats["captures"], replays=stats["replays"])
+    for _ in range(3):
+        image = forward_3_encoder(models, photo, render)
+    torch.cuda.synchronize()
+    routes = dict(captures=stats["captures"] - before["captures"],
+                  replays=stats["replays"] - before["replays"])
+    rec = dict(phase="path", what="batch-1 replay vs plain", routes=routes,
+               max_abs_diff_vs_plain=float((image.float() - ref.float()).abs().max()))
+    emit(rec)
+    require(routes == dict(captures=1, replays=2), f"batch-1 routes {routes}")
+    require(rec["max_abs_diff_vs_plain"] <= 1e-4,
+            f"fp32 replay vs plain path: {rec['max_abs_diff_vs_plain']}")
+    return rec
+
+
 def path_phase(ops, pipeline):
     FaceManipulator, forward_3_encoder = pipeline.FaceManipulator, pipeline.forward_3_encoder
     out = {}
@@ -543,6 +565,7 @@ def path_phase(ops, pipeline):
             require(diff <= 1e-4, f"fp32 kernel path vs plain path: {diff}")
             out["launches"] = counts
             out["fp32_image"] = image
+            out["replay"] = replay_check(ops, pipeline, models, photo[:1], render[:1])
         else:
             rec_drift = float((image.float() - out["fp32_image"]).abs().max())
             emit(dict(phase="path", what="bf16 vs fp32 image", max_abs_diff=rec_drift))
@@ -578,6 +601,7 @@ def path_phase(ops, pipeline):
             forward_3_encoder(models, photo, render)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        replays = pipeline.STATS["replays"]
         times = {"kernel": [], "plain": []}
         for which in ("kernel", "plain", "plain", "kernel"):
             if which == "plain":
@@ -591,7 +615,11 @@ def path_phase(ops, pipeline):
                   ms_per_forward=dt * 1e3, img_per_s=TIMED_BATCH / dt,
                   plain_ms_per_forward=dt_plain * 1e3, plain_img_per_s=TIMED_BATCH / dt_plain,
                   runs_ms={k: [t * 1e3 for t in v] for k, v in times.items()},
-                  max_memory_allocated_bytes=torch.cuda.max_memory_allocated()))
+                  max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+                  pipeline_routes=json.loads(json.dumps(pipeline.STATS))))
+        # Batches above pipeline.graphs.MAX_BATCH run eagerly: both paths timed
+        # here are the eager forward.
+        require(pipeline.STATS["replays"] == replays, "a timed batch-32 forward replayed a graph")
         del models
         torch.cuda.empty_cache()
     return out

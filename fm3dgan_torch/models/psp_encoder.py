@@ -12,6 +12,7 @@ bottleneck units, with the reference ``model_irse`` names (``input_layer``,
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import List, Tuple
 
@@ -275,6 +276,25 @@ def _align_corners_matrix(in_size: int, out_size: int) -> np.ndarray:
     return m
 
 
+@functools.lru_cache(maxsize=None)
+def _align_corners_weights(in_size: int, out_size: int, dtype: torch.dtype,
+                           device: torch.device) -> torch.Tensor:
+    """:func:`_align_corners_matrix` on ``device``, made once: a CUDA graph's
+    capture cannot copy from the host, and an eager call saves the copy.  It
+    is never an inference tensor, so a forward with gradients can save it."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(_align_corners_matrix(in_size, out_size), dtype=dtype,
+                               device=device)
+
+
+def _interpolation(in_size: int, out_size: int, x: torch.Tensor) -> torch.Tensor:
+    if torch.compiler.is_compiling() or torch.compiler.is_exporting():
+        # A tracer's tensors must not outlive the trace in the cache.
+        return torch.as_tensor(_align_corners_matrix(in_size, out_size), dtype=x.dtype,
+                               device=x.device)
+    return _align_corners_weights(in_size, out_size, x.dtype, x.device)
+
+
 def _upsample_align_corners(x, like):
     """Bilinear resize (align_corners=True) to ``like``'s size as two small
     interpolation matmuls, as the JAX module computes it.  Unlike
@@ -283,7 +303,6 @@ def _upsample_align_corners(x, like):
     (h, w), (oh, ow) = x.shape[2:], like.shape[2:]
     if (h, w) == (oh, ow):
         return x
-    wy = torch.as_tensor(_align_corners_matrix(h, oh), dtype=x.dtype, device=x.device)
-    wx = torch.as_tensor(_align_corners_matrix(w, ow), dtype=x.dtype, device=x.device)
+    wy, wx = _interpolation(h, oh, x), _interpolation(w, ow, x)
     x = torch.einsum("oh,nchw->ncow", wy, x)
     return torch.einsum("ow,nchw->ncho", wx, x)

@@ -2,7 +2,7 @@
 
 from typing import Dict
 
-from fm3dgan_torch.ops._build import build_all, plain_versions
+from fm3dgan_torch.ops._build import build_all, plain_active, plain_versions
 from fm3dgan_torch.ops.fused_act import (
     fused_leaky_relu,
     fused_leaky_relu_bwd,
@@ -54,6 +54,7 @@ __all__ = [
     "fused_leaky_relu_plain",
     "launch_counts",
     "make_kernel",
+    "plain_active",
     "plain_versions",
     "reset_launches",
     "upfirdn2d",

@@ -176,6 +176,11 @@ def plain_versions():
         _plain_on = prev
 
 
+def plain_active() -> bool:
+    """Whether a :func:`plain_versions` block is open."""
+    return _plain_on
+
+
 def use_kernel(x) -> bool:
     """True when a wrapper must launch its kernel for tensor ``x``: always on
     a CUDA tensor (outside :func:`plain_versions`), never on a CPU tensor."""

@@ -7,6 +7,7 @@ from fm3dgan_torch.pipeline.forward import (
     forward_2_encoder,
     forward_3_encoder,
 )
+from fm3dgan_torch.pipeline.graphs import STATS
 
-__all__ = ["CO_MODULATION_MODE", "FaceManipulator", "MODULATION_ENCODING", "TwoEncoderModels",
+__all__ = ["CO_MODULATION_MODE", "FaceManipulator", "MODULATION_ENCODING", "STATS", "TwoEncoderModels",
            "encode_2_encoder", "forward_2_encoder", "forward_3_encoder"]

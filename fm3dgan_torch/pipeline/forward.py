@@ -5,7 +5,9 @@ Counterpart of ``fm3dgan/pipeline/forward.py``:
 * ``forward_3_encoder``, the production inference: tensor = E_Tsr(photo or
   render), W = E_W(render), W+ = E_W+(photo); latent[i] = W * W+[:, i] on
   ``sliced_layer`` indices, else W; the generator runs on the latent with
-  the encoded tensor as its input.
+  the encoded tensor as its input.  On a card the batch forward is replayed
+  from a CUDA graph per input signature from its second call on
+  (``pipeline/graphs.py``).
 * ``forward_2_encoder``: the 2-encoder scheme, a tensor encoder and a
   modulation encoder (``TwoEncoderModels``), without co-modulation or in one
   of the ``CO_MODULATION_MODE``s; ``encode_2_encoder`` is its encoder half.
@@ -19,6 +21,7 @@ and ``fm3dgan_torch.train.steps_2encoder.forward_full``, and
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -28,6 +31,7 @@ import torch.nn as nn
 from fm3dgan_torch.models.generator import Generator
 from fm3dgan_torch.models.psp_encoder import GradualStyleEncoder
 from fm3dgan_torch.models.resnet_encoder import ResNet18Encoder
+from fm3dgan_torch.pipeline import graphs
 from fm3dgan_torch.utils.spans import span
 
 MODULATION_ENCODING = ("Render Image", "Photo Image")
@@ -47,7 +51,8 @@ def resolve_device(device=None) -> torch.device:
 
 
 class FaceManipulator(nn.Module):
-    """Module bundle for the 3-encoder manipulation pipeline."""
+    """Module bundle for the 3-encoder manipulation pipeline; ``graphs``
+    holds its forward's CUDA graphs."""
 
     def __init__(self, generator: Generator, e_tsr: ResNet18Encoder, e_w: ResNet18Encoder,
                  e_w_plus: GradualStyleEncoder, input_size: int = 256):
@@ -57,6 +62,7 @@ class FaceManipulator(nn.Module):
         self.e_w = e_w
         self.e_w_plus = e_w_plus
         self.input_size = input_size
+        self.graphs = graphs.EditGraphs()
 
     @classmethod
     def create(
@@ -112,12 +118,25 @@ class FaceManipulator(nn.Module):
             module.load_state_dict(state_dicts[key])
 
 
+@functools.lru_cache(maxsize=None)
+def _latent_mask(n_latent: int, chosen: frozenset, device: torch.device) -> torch.Tensor:
+    """[n_latent] booleans, True on ``chosen``, made once on ``device``: a
+    CUDA graph's capture cannot copy from the host."""
+    with torch.inference_mode(False):
+        return torch.tensor([i in chosen for i in range(n_latent)], device=device)
+
+
 def _combine_w_wplus(w: torch.Tensor, w_plus: torch.Tensor,
                      sliced_layer: Optional[Sequence[int]]) -> torch.Tensor:
     """latent[:, i] = W * W+[:, i] for i in sliced_layer, else W."""
     n_latent = w_plus.shape[1]
-    chosen = set(range(n_latent) if sliced_layer is None else sliced_layer)
-    mask = torch.tensor([i in chosen for i in range(n_latent)], device=w.device)[None, :, None]
+    chosen = frozenset(range(n_latent) if sliced_layer is None else sliced_layer)
+    if torch.compiler.is_compiling() or torch.compiler.is_exporting():
+        # A tracer's tensors must not outlive the trace in the cache.
+        mask = torch.tensor([i in chosen for i in range(n_latent)], device=w.device)
+    else:
+        mask = _latent_mask(n_latent, chosen, w.device)
+    mask = mask[None, :, None]
     w_b = w[:, None, :]
     return torch.where(mask, w_b * w_plus, w_b)
 
@@ -127,6 +146,34 @@ def _to_device(photo: torch.Tensor, render: torch.Tensor, device):
     with span("fm3d.edit.to_device"):
         return (photo.to(device).permute(0, 3, 1, 2).contiguous(),
                 render.to(device).permute(0, 3, 1, 2).contiguous())
+
+
+def _edit(models: FaceManipulator, photo: torch.Tensor, render: torch.Tensor, tsr_encode: str,
+          sliced_layer: Optional[Sequence[int]], use_tanh: bool,
+          noise_generator: Optional[torch.Generator]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The batch forward: NHWC inputs on any device -> (image NHWC, latent)
+    on the bundle's; what a CUDA graph captures."""
+    photo, render = _to_device(photo, render, models.device)
+    tsr_input = photo if tsr_encode == "Photo Image" else render
+    with span("fm3d.model.e_tsr"):
+        encoded_tensor = models.e_tsr(tsr_input)
+    with span("fm3d.model.e_w"):
+        encoded_w = models.e_w(render)
+    with span("fm3d.model.e_w_plus"):
+        encoded_w_plus = models.e_w_plus(photo)
+    latent = _combine_w_wplus(encoded_w, encoded_w_plus, sliced_layer)
+    with span("fm3d.model.generator"):
+        image, latent_out = models.generator(
+            input_is_latent=True,
+            latent_styles=[latent],
+            external_input_tensor=encoded_tensor,
+            randomize_noise=noise_generator is not None,
+            noise_generator=noise_generator,
+            return_latent=True,
+        )
+    if use_tanh:
+        image = torch.tanh(image)
+    return image.permute(0, 2, 3, 1).contiguous(), latent_out
 
 
 def forward_3_encoder(
@@ -144,32 +191,20 @@ def forward_3_encoder(
 
     Noise comes from ``noise_generator`` when one is given, else from the
     generator's fixed buffers.  Returns the image, or (image, latent) with
-    ``return_latent``."""
+    ``return_latent``.  On a card, a call that repeats an earlier call's
+    signature replays its CUDA graph and returns new tensors
+    (``pipeline/graphs.py``); the rest run eagerly."""
     if tsr_encode not in MODULATION_ENCODING:
         raise ValueError(f"tsr_encode must be one of {MODULATION_ENCODING}")
-    device = models.device
+
+    def region(p, r):
+        return _edit(models, p, r, tsr_encode, sliced_layer, use_tanh, noise_generator)
+
     with span("fm3d.edit.forward"), torch.inference_mode():
-        photo, render = _to_device(photo, render, device)
-        tsr_input = photo if tsr_encode == "Photo Image" else render
-        with span("fm3d.model.e_tsr"):
-            encoded_tensor = models.e_tsr(tsr_input)
-        with span("fm3d.model.e_w"):
-            encoded_w = models.e_w(render)
-        with span("fm3d.model.e_w_plus"):
-            encoded_w_plus = models.e_w_plus(photo)
-        latent = _combine_w_wplus(encoded_w, encoded_w_plus, sliced_layer)
-        with span("fm3d.model.generator"):
-            image, latent_out = models.generator(
-                input_is_latent=True,
-                latent_styles=[latent],
-                external_input_tensor=encoded_tensor,
-                randomize_noise=noise_generator is not None,
-                noise_generator=noise_generator,
-                return_latent=True,
-            )
-        if use_tanh:
-            image = torch.tanh(image)
-        image = image.permute(0, 2, 3, 1).contiguous()
+        out = graphs.replayed(models, photo, render, region, noise_generator=noise_generator,
+                              tsr_encode=tsr_encode, sliced_layer=sliced_layer,
+                              use_tanh=use_tanh, return_latent=return_latent)
+        image, latent_out = region(photo, render) if out is None else out
     if return_latent:
         return image, latent_out
     return image

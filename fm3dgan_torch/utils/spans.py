@@ -23,6 +23,8 @@ the trace's readers take for convolutions and for the port's kernels.
     fm3d.loss.lpips / .arcface    the frozen loss networks' calls
     fm3d.edit.forward             forward_3_encoder / forward_2_encoder
     fm3d.edit.to_device           their inputs' copies to the device and permutes
+    fm3d.edit.capture             forward_3_encoder's warm-up and capture of a CUDA graph
+    fm3d.edit.replay              its copies in, the graph's replay and the outputs' clones
 """
 
 from __future__ import annotations
