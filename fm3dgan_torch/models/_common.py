@@ -58,7 +58,7 @@ def bn(m: nn.BatchNorm2d, x: torch.Tensor, train: bool = False) -> torch.Tensor:
 def _global_batch_norm(xf, weight, bias, eps):
     """Batch statistics over every rank's rows, differentiable to any order:
     each rank's count, per-channel mean and sum of squared deviations (its
-    own two-pass statistics) gathered in one ``all_gather_rows``, and
+    own two-pass statistics) gathered in one ``gather_stats``, and
     combined on every rank in rank order (Chan et al.'s pairwise update),
     to the global mean and biased variance.  Returns (y, mean, var).
 
@@ -71,7 +71,7 @@ def _global_batch_norm(xf, weight, bias, eps):
     c = xf.shape[1]
     n = xf.numel() // c
     var, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
-    stats = parallel.all_gather_rows(torch.cat([xf.new_full((1,), n), mean, var * n])[None])
+    stats = parallel.gather_stats(torch.cat([xf.new_full((1,), n), mean, var * n])[None])
     counts, means, m2 = stats[:, :1], stats[:, 1:1 + c], stats[:, 1 + c:]
     total = counts.sum()
     mean = (counts * means).sum(0) / total

@@ -18,6 +18,10 @@ import torch.nn as nn
 
 from fm3dgan_torch.nn.layers import EqualLinear, PixelNorm
 from fm3dgan_torch.nn.modulated import ConstantInput, StyledConv, ToRGB
+from fm3dgan_torch.utils.spans import span
+
+# The span around each synthesis level of ``Generator.forward``, by resolution.
+LEVEL_SPANS = {2**k: f"fm3d.model.g_level.{2**k}" for k in range(2, 11)}
 
 
 def channel_table(channel_multiplier: int = 2, width_mult: float = 1.0) -> Dict[int, int]:
@@ -192,17 +196,21 @@ class Generator(nn.Module):
 
         g = noise_generator
         scalars: List[torch.Tensor] = []
-        out, s = self.conv1(out, latent[:, 0], noise=noise[0], generator=g, return_style_scalars=True)
-        scalars.append(s)
-        skip = self.to_rgb1(out, latent[:, 1])
+        with span(LEVEL_SPANS[4]):
+            out, s = self.conv1(out, latent[:, 0], noise=noise[0], generator=g,
+                                return_style_scalars=True)
+            scalars.append(s)
+            skip = self.to_rgb1(out, latent[:, 1])
         rgb_list = [skip]
         i = 1
         for idx, to_rgb in enumerate(self.to_rgbs):
-            for k in range(2):
-                out, s = self.convs[2 * idx + k](out, latent[:, i + k], noise=noise[1 + 2 * idx + k],
-                                                 generator=g, return_style_scalars=True)
-                scalars.append(s)
-            skip, s = to_rgb(out, latent[:, i + 2], skip, return_style_scalars=True)
+            with span(LEVEL_SPANS[8 << idx]):
+                for k in range(2):
+                    out, s = self.convs[2 * idx + k](out, latent[:, i + k],
+                                                     noise=noise[1 + 2 * idx + k], generator=g,
+                                                     return_style_scalars=True)
+                    scalars.append(s)
+                skip, s = to_rgb(out, latent[:, i + 2], skip, return_style_scalars=True)
             if i + 3 == latent.shape[1]:
                 scalars.append(s)
             rgb_list.append(skip)

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from fm3dgan_torch.models._common import bn, conv, prelu
 from fm3dgan_torch.nn.layers import EqualLinear
 from fm3dgan_torch.precision import acc
+from fm3dgan_torch.utils.spans import span
 
 
 def get_blocks(num_layers: int, width: int = 64) -> List[List[Tuple[int, int, int]]]:
@@ -243,22 +244,24 @@ class GradualStyleEncoder(nn.Module):
         """x: [N, 3, H, W]; ``train`` normalises with batch statistics and
         updates the running ones."""
         il = self.input_layer
-        x = prelu(il[2], bn(il[1], conv(il[0], x, self.dtype), train))
-        feats = {}
-        for i, unit in enumerate(self.body):
-            x = unit(x, train)
-            if i in self.taps:
-                feats[i] = x
+        with span("fm3d.model.psp_body"):
+            x = prelu(il[2], bn(il[1], conv(il[0], x, self.dtype), train))
+            feats = {}
+            for i, unit in enumerate(self.body):
+                x = unit(x, train)
+                if i in self.taps:
+                    feats[i] = x
         c1, c2, c3 = (feats[t] for t in self.taps)
 
-        latents = [self.styles[j](c3) for j in range(self.coarse_ind)]
-        lat1 = conv(self.latlayer1, c2, self.dtype)
-        p2 = _upsample_align_corners(c3, lat1) + lat1
-        latents += [self.styles[j](p2) for j in range(self.coarse_ind, self.middle_ind)]
-        lat2 = conv(self.latlayer2, c1, self.dtype)
-        p1 = _upsample_align_corners(p2, lat2) + lat2
-        latents += [self.styles[j](p1) for j in range(self.middle_ind, len(self.styles))]
-        return torch.stack(latents, dim=1)
+        with span("fm3d.model.psp_styles"):
+            latents = [self.styles[j](c3) for j in range(self.coarse_ind)]
+            lat1 = conv(self.latlayer1, c2, self.dtype)
+            p2 = _upsample_align_corners(c3, lat1) + lat1
+            latents += [self.styles[j](p2) for j in range(self.coarse_ind, self.middle_ind)]
+            lat2 = conv(self.latlayer2, c1, self.dtype)
+            p1 = _upsample_align_corners(p2, lat2) + lat2
+            latents += [self.styles[j](p1) for j in range(self.middle_ind, len(self.styles))]
+            return torch.stack(latents, dim=1)
 
 
 def _align_corners_matrix(in_size: int, out_size: int) -> np.ndarray:

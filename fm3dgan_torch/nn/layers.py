@@ -233,7 +233,7 @@ def minibatch_stddev(x: torch.Tensor, group_size: int = 4, num_features: int = 1
     rows are gathered over the ranks and each rank keeps its rows of the
     stddev channels."""
     n, c, h, w = x.shape
-    full = parallel.all_gather_rows(x)
+    full = parallel.gather_stats(x)
     group = min(full.shape[0], group_size)
     y = full.reshape(group, -1, num_features, c // num_features, h, w)
     stddev = torch.sqrt(y.var(0, unbiased=False) + 1e-8)

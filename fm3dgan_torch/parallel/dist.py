@@ -8,9 +8,9 @@ contiguous rows ``[r * N / W, (r + 1) * N / W)`` of a global batch of N rows
 over W processes (``local_rows``), and the replicated parameters:
 
 * what couples the rows of a batch runs on the global batch: train-mode
-  BatchNorm combines the ranks' per-channel statistics (``all_gather_rows``),
-  ``minibatch_stddev`` groups the gathered batch, the PPL running mean is
-  the global mean (``all_reduce_sum``);
+  BatchNorm combines the ranks' per-channel statistics and
+  ``minibatch_stddev`` groups the gathered batch (both ``gather_stats``), the
+  PPL running mean is the global mean (``all_reduce_sum``);
 * what is drawn at the batch's shape is drawn at the global shape from the
   same generator on every rank, which keeps its own rows (``randn_rows``);
 * each optimizer step averages the gradients of the ranks' local mean losses
@@ -42,6 +42,8 @@ from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+
+from fm3dgan_torch.utils.spans import span
 
 # Collectives run and the bytes they carried, by kind (read by chip_smoke.py).
 STATS: Dict[str, Dict[str, int]] = {}
@@ -210,16 +212,28 @@ def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
     return _AllGatherRows.apply(x) if active() else x
 
 
+def gather_stats(x: torch.Tensor) -> torch.Tensor:
+    """``all_gather_rows`` of the statistics that make a layer's output the
+    global batch's (the BatchNorm's moments, the minibatch stddev's rows),
+    inside the span ``fm3d.parallel.stats``."""
+    if not active():
+        return x
+    with span("fm3d.parallel.stats"):
+        return _AllGatherRows.apply(x)
+
+
 def average_gradients(grads: Dict[str, Dict[str, torch.Tensor]]
                       ) -> Dict[str, Dict[str, torch.Tensor]]:
     """``{partition: {name: grad}}`` averaged over the ranks: one flattened
     all-reduce (the gradients share one dtype), divided by W."""
     if not active():
         return grads
-    flat = [g for part in grads.values() for g in part.values()]
-    buf = _all_reduce(torch.cat([g.detach().reshape(-1) for g in flat])).div_(world_size())
-    views = iter(torch.split(buf, [g.numel() for g in flat]))
-    return {k: {n: next(views).view_as(g) for n, g in part.items()} for k, part in grads.items()}
+    with span("fm3d.parallel.grads"):
+        flat = [g for part in grads.values() for g in part.values()]
+        buf = _all_reduce(torch.cat([g.detach().reshape(-1) for g in flat])).div_(world_size())
+        views = iter(torch.split(buf, [g.numel() for g in flat]))
+        return {k: {n: next(views).view_as(g) for n, g in part.items()}
+                for k, part in grads.items()}
 
 
 def mean_metrics(metrics: Dict) -> Dict:

@@ -20,6 +20,14 @@ the trace's readers take for convolutions and for the port's kernels.
     fm3d.train.apply              gradient averaging, Adam's step, zero_grad
     fm3d.train.ema                the g_ema update
     fm3d.model.<module>           e_tsr, e_w, e_w_plus, e_tensor, e_mod, generator
+    fm3d.model.g_level.<res>      one synthesis level of Generator.forward (res 4 ... 1024):
+                                  its StyledConvs and its ToRGB with the skip's up2
+    fm3d.model.psp_body           GradualStyleEncoder's input layer and IR-SE units
+    fm3d.model.psp_styles         its lateral fusion and GradualStyleBlocks
+    fm3d.parallel.grads           the gradient all-reduce of parallel.average_gradients
+    fm3d.parallel.stats           parallel.gather_stats: the global BatchNorm's and the
+                                  minibatch stddev's gathers
+                                  (both only while a process group is active)
     fm3d.loss.lpips / .arcface    the frozen loss networks' calls
     fm3d.edit.forward             forward_3_encoder / forward_2_encoder
     fm3d.edit.to_device           their inputs' copies to the device and permutes

@@ -355,12 +355,14 @@ def test_analyze_trace_hand_built_trace(tmp_path):
 
 def test_analyze_trace_span_plane_of_profile_train(port_profile):
     """Iteration 16 (R1 and PPL) traced on the CPU: each step once inside
-    the iteration, Adam four times, EMA once, each model once per step,
-    no loss network (``--no_frozen``), and no device time or idle."""
+    the iteration, Adam four times, EMA once, each model once per step
+    (with pSp's two spans and G's six synthesis levels at 128 px inside
+    them), no loss network (``--no_frozen``), and no device time or idle."""
     rc, out = _stdout(analyze_trace.main, [port_profile["out_dir"], "--plane", "spans", "--json"])
     assert rc == 0
     rows = {r["span"]: r for r in map(json.loads, out.strip().splitlines())}
-    models = ("e_tsr", "e_w", "e_w_plus", "generator")
+    models = ("e_tsr", "e_w", "e_w_plus", "generator", "psp_body", "psp_styles",
+              *(f"g_level.{r}" for r in (4, 8, 16, 32, 64, 128)))
     assert {k: r["count"] for k, r in rows.items()} == {
         "fm3d.train.iteration": 1, **{f"fm3d.train.{s}": 1 for s in STEP_NAMES},
         "fm3d.train.apply": 4, "fm3d.train.ema": 1, **{f"fm3d.model.{m}": 3 for m in models}}

@@ -92,21 +92,39 @@ def three_encoder(tmp_path_factory):
                 plain=plain)
 
 
+def _inside_models(names):
+    """(span, parent) of each model span's own spans, after it: pSp's body
+    and style blocks inside an encoder that is a GradualStyleEncoder, and
+    G's synthesis levels (4, 8 and 16 px at size 16) inside G."""
+    out = []
+    for m in names:
+        out.append(m)
+        if m in ("fm3d.model.e_w_plus", "fm3d.model.e_mod"):
+            out += [("fm3d.model.psp_body", m), ("fm3d.model.psp_styles", m)]
+        if m == "fm3d.model.generator":
+            out += [(f"fm3d.model.g_level.{r}", m) for r in (4, 8, 16)]
+    return out
+
+
 def test_three_encoder_iteration_spans_nest(three_encoder):
     got = _parents(three_encoder["spans"])
     model = ENCODERS + ("fm3d.model.generator",)
+
+    def models_in(step):
+        return [p if isinstance(p, tuple) else (p, step) for p in _inside_models(model)]
+
     want = [("fm3d.train.stage_batch", None), ("fm3d.train.iteration", None),
             ("fm3d.train.d_step", "fm3d.train.iteration"),
-            *[(m, "fm3d.train.d_step") for m in model],
+            *models_in("fm3d.train.d_step"),
             ("fm3d.train.apply", "fm3d.train.d_step"),
             ("fm3d.train.d_reg_step", "fm3d.train.iteration"),
             ("fm3d.train.apply", "fm3d.train.d_reg_step"),
             ("fm3d.train.g_step", "fm3d.train.iteration"),
-            *[(m, "fm3d.train.g_step") for m in model],
+            *models_in("fm3d.train.g_step"),
             ("fm3d.loss.lpips", "fm3d.train.g_step"), ("fm3d.loss.arcface", "fm3d.train.g_step"),
             ("fm3d.train.apply", "fm3d.train.g_step"),
             ("fm3d.train.g_reg_step", "fm3d.train.iteration"),
-            *[(m, "fm3d.train.g_reg_step") for m in model],
+            *models_in("fm3d.train.g_reg_step"),
             ("fm3d.train.apply", "fm3d.train.g_reg_step"),
             ("fm3d.train.ema", "fm3d.train.g_reg_step")]
     assert got == want
@@ -195,8 +213,8 @@ def test_edit_forwards_emit_their_children(tmp_path):
         got, spans = _spans(lambda: fwd(models, photo, render), tmp_path)
         assert torch.equal(got, want)
         assert _parents(spans) == [("fm3d.edit.forward", None)] + [
-            (n, "fm3d.edit.forward")
-            for n in ["fm3d.edit.to_device", *middle, "fm3d.model.generator"]]
+            p if isinstance(p, tuple) else (p, "fm3d.edit.forward")
+            for p in _inside_models(["fm3d.edit.to_device", *middle, "fm3d.model.generator"])]
 
 
 def test_exported_program_holds_no_profiler_node():
