@@ -517,20 +517,23 @@ def _inputs(batch, size, seed):
 def replay_check(ops, pipeline, models, photo, render):
     """The graph route at a batch of one pair: three calls with the same
     inputs (eager, capture and replay, replay), the third held against the
-    plain path at the eager call's tolerance."""
+    plain path at the eager call's tolerance.  The capture holds 16 side
+    branches (E_Tsr, E_W and pSp's 14 style blocks); the eager plain call
+    forks none."""
     forward_3_encoder, stats = pipeline.forward_3_encoder, pipeline.STATS
+    keys = ("captures", "replays", "branches")
+    before = {k: stats[k] for k in keys}
     with ops.plain_versions():
         ref = forward_3_encoder(models, photo, render)
-    before = dict(captures=stats["captures"], replays=stats["replays"])
+    require(stats["branches"] == before["branches"], "an eager call forked branches")
     for _ in range(3):
         image = forward_3_encoder(models, photo, render)
     torch.cuda.synchronize()
-    routes = dict(captures=stats["captures"] - before["captures"],
-                  replays=stats["replays"] - before["replays"])
+    routes = {k: stats[k] - before[k] for k in keys}
     rec = dict(phase="path", what="batch-1 replay vs plain", routes=routes,
                max_abs_diff_vs_plain=float((image.float() - ref.float()).abs().max()))
     emit(rec)
-    require(routes == dict(captures=1, replays=2), f"batch-1 routes {routes}")
+    require(routes == dict(captures=1, replays=2, branches=16), f"batch-1 routes {routes}")
     require(rec["max_abs_diff_vs_plain"] <= 1e-4,
             f"fp32 replay vs plain path: {rec['max_abs_diff_vs_plain']}")
     return rec

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from fm3dgan_torch.models._common import bn, conv, prelu
 from fm3dgan_torch.nn.layers import EqualLinear
 from fm3dgan_torch.precision import acc
+from fm3dgan_torch.utils import streams
 from fm3dgan_torch.utils.spans import span
 
 
@@ -253,15 +254,28 @@ class GradualStyleEncoder(nn.Module):
                     feats[i] = x
         c1, c2, c3 = (feats[t] for t in self.taps)
 
-        with span("fm3d.model.psp_styles"):
-            latents = [self.styles[j](c3) for j in range(self.coarse_ind)]
-            lat1 = conv(self.latlayer1, c2, self.dtype)
-            p2 = _upsample_align_corners(c3, lat1) + lat1
-            latents += [self.styles[j](p2) for j in range(self.coarse_ind, self.middle_ind)]
+        # Each style block is a branch of its own (utils/streams.py), forked
+        # as soon as its input exists: while a CUDA graph is captured the
+        # coarse blocks run beside the lateral fusion, the middle ones beside
+        # p1's, and all join before the stack.
+        def blocks(lo, hi, x):
+            return [functools.partial(self.styles[j], x) for j in range(lo, hi)]
+
+        def fine(p2):
             lat2 = conv(self.latlayer2, c1, self.dtype)
             p1 = _upsample_align_corners(p2, lat2) + lat2
-            latents += [self.styles[j](p1) for j in range(self.middle_ind, len(self.styles))]
-            return torch.stack(latents, dim=1)
+            return streams.fork(blocks(self.middle_ind, len(self.styles), p1))[1]
+
+        def middle_and_fine():
+            lat1 = conv(self.latlayer1, c2, self.dtype)
+            p2 = _upsample_align_corners(c3, lat1) + lat1
+            fine_latents, middle = streams.fork(blocks(self.coarse_ind, self.middle_ind, p2),
+                                                functools.partial(fine, p2))
+            return middle + fine_latents
+
+        with span("fm3d.model.psp_styles"):
+            rest, coarse = streams.fork(blocks(0, self.coarse_ind, c3), middle_and_fine)
+            return torch.stack(coarse + rest, dim=1)
 
 
 def _align_corners_matrix(in_size: int, out_size: int) -> np.ndarray:

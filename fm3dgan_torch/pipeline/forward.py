@@ -7,7 +7,8 @@ Counterpart of ``fm3dgan/pipeline/forward.py``:
   ``sliced_layer`` indices, else W; the generator runs on the latent with
   the encoded tensor as its input.  On a card the batch forward is replayed
   from a CUDA graph per input signature from its second call on
-  (``pipeline/graphs.py``).
+  (``pipeline/graphs.py``), which holds the independent encoders and pSp's
+  style blocks as parallel branches (``utils/streams.py``).
 * ``forward_2_encoder``: the 2-encoder scheme, a tensor encoder and a
   modulation encoder (``TwoEncoderModels``), without co-modulation or in one
   of the ``CO_MODULATION_MODE``s; ``encode_2_encoder`` is its encoder half.
@@ -32,6 +33,7 @@ from fm3dgan_torch.models.generator import Generator
 from fm3dgan_torch.models.psp_encoder import GradualStyleEncoder
 from fm3dgan_torch.models.resnet_encoder import ResNet18Encoder
 from fm3dgan_torch.pipeline import graphs
+from fm3dgan_torch.utils import streams
 from fm3dgan_torch.utils.spans import span
 
 MODULATION_ENCODING = ("Render Image", "Photo Image")
@@ -155,12 +157,18 @@ def _edit(models: FaceManipulator, photo: torch.Tensor, render: torch.Tensor, ts
     on the bundle's; what a CUDA graph captures."""
     photo, render = _to_device(photo, render, models.device)
     tsr_input = photo if tsr_encode == "Photo Image" else render
-    with span("fm3d.model.e_tsr"):
-        encoded_tensor = models.e_tsr(tsr_input)
-    with span("fm3d.model.e_w"):
-        encoded_w = models.e_w(render)
-    with span("fm3d.model.e_w_plus"):
-        encoded_w_plus = models.e_w_plus(photo)
+
+    def encode(name, module, x):
+        with span(name):
+            return module(x)
+
+    # While a CUDA graph is captured, E_Tsr and E_W run as branches beside
+    # E_W+ and join before the combine (utils/streams.py); G stays on the
+    # capturing stream.
+    encoded_w_plus, (encoded_tensor, encoded_w) = streams.fork(
+        [functools.partial(encode, "fm3d.model.e_tsr", models.e_tsr, tsr_input),
+         functools.partial(encode, "fm3d.model.e_w", models.e_w, render)],
+        functools.partial(encode, "fm3d.model.e_w_plus", models.e_w_plus, photo))
     latent = _combine_w_wplus(encoded_w, encoded_w_plus, sliced_layer)
     with span("fm3d.model.generator"):
         image, latent_out = models.generator(

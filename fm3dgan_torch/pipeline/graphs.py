@@ -8,6 +8,10 @@ NHWC inputs on the device to the NHWC image and the latent, and replays it:
 * the first call with a signature runs eagerly (it chooses cuDNN's plans
   and fills the allocator); the second warms up on a side stream, captures
   into a private memory pool and replays; later calls replay;
+* the capture holds the forward's independent sub-networks as parallel
+  branches (``utils/streams.py``): E_Tsr and E_W beside E_W+, and each of
+  pSp's style blocks beside the rest of pSp, all joined before G; the same
+  kernels as the eager forward, which runs them one after another;
 * a replay copies the caller's photo and render into the graph's static
   inputs, replays, and returns clones of the static outputs, so the next
   request never overwrites a caller's tensor;
@@ -45,6 +49,7 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 import torch
 
 from fm3dgan_torch.ops import plain_active
+from fm3dgan_torch.utils import streams
 from fm3dgan_torch.utils.spans import span
 
 MAX_GRAPHS = 4
@@ -53,8 +58,10 @@ MAX_BATCH = 4
 # they set up what lazy initialisation the capture stream would otherwise do.
 WARMUP_CALLS = 2
 
-# Calls by route, read by the tests and chip_smoke.py.
-STATS: Dict[str, Any] = {"eager": {}, "captures": 0, "replays": 0, "invalidations": 0}
+# Calls by route, and the side branches forked while capturing (16 a
+# 3-encoder signature), read by the tests and chip_smoke.py.
+STATS: Dict[str, Any] = {"eager": {}, "captures": 0, "replays": 0, "invalidations": 0,
+                         "branches": 0}
 
 Region = Callable[[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 
@@ -158,8 +165,10 @@ def capture(device: torch.device, photo: torch.Tensor, render: torch.Tensor,
             region(*inputs)
     torch.cuda.current_stream(device).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
+    forked = streams.forked
     with torch.cuda.graph(graph):
         outputs = region(*inputs)
+    STATS["branches"] += streams.forked - forked
     return Graph(graph, inputs, outputs)
 
 

@@ -58,8 +58,8 @@ def test_cpu_forward_is_eager_and_unchanged(cpu_models):
                                             return_latent=True)
         assert torch.equal(got, want) and torch.equal(got_latent, lat)
     assert STATS["eager"].get("cpu", 0) == before["eager"].get("cpu", 0) + 2
-    assert {k: STATS[k] for k in ("captures", "replays", "invalidations")} == {
-        k: before[k] for k in ("captures", "replays", "invalidations")}
+    assert {k: STATS[k] for k in ("captures", "replays", "invalidations", "branches")} == {
+        k: before[k] for k in ("captures", "replays", "invalidations", "branches")}
     assert not m.graphs.graphs and not m.graphs.seen
 
 
