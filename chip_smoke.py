@@ -2496,23 +2496,26 @@ def ddp_cli_phase(ops):
 
 @contextlib.contextmanager
 def count_plain_decisions():
-    """Count the wrappers' calls that take the plain version (every wrapper
-    asks ``_build.use_kernel``) while the block runs."""
+    """Count the operator calls that take the plain version on a CUDA tensor
+    while the block runs: the plain versions of ``_build.PLAIN`` are the
+    operators' CUDA kernels only where ``plain_versions()`` registers them."""
     from fm3dgan_torch.ops import _build
 
     calls = {"plain": 0}
-    original = _build.use_kernel
+    original = dict(_build.PLAIN)
 
-    def use_kernel(x):
-        on = original(x)
-        calls["plain"] += not on
-        return on
+    def counted(plain):
+        def kernel(x, *args):
+            calls["plain"] += x.is_cuda
+            return plain(x, *args)
 
-    _build.use_kernel = use_kernel
+        return kernel
+
+    _build.PLAIN.update({name: counted(plain) for name, plain in original.items()})
     try:
         yield calls
     finally:
-        _build.use_kernel = original
+        _build.PLAIN.update(original)
 
 
 def profile_phase(ops):

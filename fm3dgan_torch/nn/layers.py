@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from fm3dgan_torch import parallel
 from fm3dgan_torch.ops import blur, downsample2x, fused_leaky_relu, make_kernel, upsample2x
+from fm3dgan_torch.ops.upfirdn2d import fir_taps
 from fm3dgan_torch.precision import acc_dtype
 
 
@@ -122,7 +123,7 @@ class Blur(nn.Module):
         k = make_kernel(kernel)
         if upsample_factor > 1:
             k = k * (upsample_factor**2)
-        self.kernel = k
+        self.kernel = fir_taps(k)
         self.pad = tuple(pad)
 
     def forward(self, x):
@@ -140,7 +141,7 @@ class Upsample(nn.Module):
         k = np.asarray(kernel, np.float32)
         if k.ndim != 1:
             raise ValueError("Upsample takes 1-D taps (a separable kernel)")
-        self.kernel_1d = k / k.sum() * factor
+        self.kernel_1d = fir_taps(k / k.sum() * factor)
         p = k.size - factor
         self.pad = ((p + 1) // 2 + factor - 1, p // 2)
 
@@ -171,7 +172,7 @@ class Downsample(nn.Module):
         k = np.asarray(kernel, np.float32)
         if k.ndim != 1:
             raise ValueError("Downsample takes 1-D taps (a separable kernel)")
-        self.kernel_1d = k / k.sum()
+        self.kernel_1d = fir_taps(k / k.sum())
         p = k.size - factor
         self.pad = ((p + 1) // 2, p // 2)
 

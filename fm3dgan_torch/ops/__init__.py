@@ -2,6 +2,9 @@
 
 from typing import Dict
 
+import torch
+
+from fm3dgan_torch.ops import _build
 from fm3dgan_torch.ops._build import build_all, plain_active, plain_versions
 from fm3dgan_torch.ops.fused_act import (
     fused_leaky_relu,
@@ -32,12 +35,16 @@ KERNEL_WRAPPERS = {
 
 
 def reset_launches() -> None:
-    for fn in KERNEL_WRAPPERS.values():
-        fn.launches = 0
+    if _build.loaded():
+        torch.ops.fm3dgan_torch.reset_launches()
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
+    """Kernel launches since :func:`reset_launches`, counted by the CUDA
+    kernels of the operators (``csrc/ops.cpp``); 0 where never loaded."""
+    if not _build.loaded():
+        return dict.fromkeys(KERNEL_WRAPPERS, 0)
+    return dict(zip(KERNEL_WRAPPERS, torch.ops.fm3dgan_torch.launch_counts()))
 
 
 __all__ = [

@@ -1,6 +1,7 @@
 // Fused bias + LeakyReLU + scale, NCHW, fp32 or bf16 with fp32 arithmetic:
 //     y = scale * leaky_relu(x + bias[c], slope),  c = (i / HW) % C.
-// Plain C interface, loaded through ctypes (see ../_build.py).
+// Entry points declared in kernels.h, bound to the fm3dgan_torch operators
+// by ops.cpp.
 //
 // fm_fused_leaky_relu replaces the TPU kernel
 // fm3dgan/ops/pallas/fused_act_kernel.py `_call_fwd` (:48, reached through
@@ -24,6 +25,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "kernels.h"
 
 namespace {
 
@@ -149,10 +152,6 @@ void launch_bwd(const void* g, const void* out, void* dx, int64_t total,
 
 }  // namespace
 
-extern "C" {
-
-// dtype: 0 = float32, 1 = bfloat16.  bias: NULL or C elements of the same
-// dtype as x.  total = N*C*HW.
 int fm_fused_leaky_relu(const void* x, const void* bias, void* y, int dtype,
                         long long total, int C, int HW, float slope,
                         float scale, void* stream) {
@@ -167,7 +166,6 @@ int fm_fused_leaky_relu(const void* x, const void* bias, void* y, int dtype,
   return (int)cudaGetLastError();
 }
 
-// g, out, dx: total elements of one dtype (0 = float32, 1 = bfloat16).
 int fm_fused_leaky_relu_bwd(const void* g, const void* out, void* dx,
                             int dtype, long long total, float slope,
                             float scale, void* stream) {
@@ -181,5 +179,3 @@ int fm_fused_leaky_relu_bwd(const void* g, const void* out, void* dx,
   }
   return (int)cudaGetLastError();
 }
-
-}  // extern "C"

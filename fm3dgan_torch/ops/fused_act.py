@@ -14,11 +14,10 @@ only its output; its backward is the backward Function, which runs the
 backward kernel and sums ``dbias``; the backward of that is the backward
 kernel again on ``ggx + ggb``.  Every launch goes through the operators
 ``torch.ops.fm3dgan_torch.fused_leaky_relu`` and ``fused_leaky_relu_bwd``
-(``_build.define_op``), whose bodies :func:`_launch_fwd` /
-:func:`_launch_bwd` run the plain version on a CPU tensor (and under
-``plain_versions()``) and the kernel on a CUDA tensor, so the CPU runs the
-same autograd wiring as the card and ``torch.export`` records the
-operators.
+(``_build.define_op``), whose CPU kernels (and, under ``plain_versions()``,
+CUDA kernels) are the plain versions and whose CUDA kernels launch K1 / K2
+(``csrc/ops.cpp``), so the CPU runs the same autograd wiring as the card and
+``torch.export`` records the operators.
 """
 
 from __future__ import annotations
@@ -58,59 +57,12 @@ def fused_leaky_relu_bwd_plain(
     return torch.where(out >= 0, g * scale, g * (negative_slope * scale)).to(grad.dtype)
 
 
-def _launch_fwd(x, bias, negative_slope, scale):
-    """K1 on a CUDA tensor, the plain version on a CPU tensor."""
-    if not _build.use_kernel(x):
-        return fused_leaky_relu_plain(x, bias, negative_slope, scale)
-    code = _build.check_input(x, "fused_leaky_relu")
-    if x.dim() < 2:
-        raise ValueError("fused_leaky_relu takes [N, C, ...] input")
-    c = x.shape[1]
-    hw = x[0, 0].numel()
-    if bias is not None:
-        if bias.shape != (c,) or bias.device != x.device or bias.dtype != x.dtype:
-            raise ValueError(
-                f"bias must be [{c}] {x.dtype} on {x.device}, got "
-                f"{tuple(bias.shape)} {bias.dtype} on {bias.device}"
-            )
-        bias = bias.contiguous()
-    y = torch.empty_like(x)
-    _build.launch(
-        _build.library("fused_act").fm_fused_leaky_relu, x,
-        x.data_ptr(), None if bias is None else bias.data_ptr(), y.data_ptr(),
-        code, x.numel(), c, hw, float(negative_slope), float(scale),
-    )
-    fused_leaky_relu.launches += 1
-    return y
-
-
-def _launch_bwd(grad, out, negative_slope, scale):
-    """K2 on a CUDA tensor, the plain version on a CPU tensor."""
-    if not _build.use_kernel(out):
-        return fused_leaky_relu_bwd_plain(grad, out, negative_slope, scale)
-    _build.check_input(grad, "fused_leaky_relu_bwd grad")
-    code = _build.check_input(out, "fused_leaky_relu_bwd out")
-    if grad.shape != out.shape or grad.dtype != out.dtype or grad.device != out.device:
-        raise ValueError(
-            f"fused_leaky_relu_bwd: grad {tuple(grad.shape)} {grad.dtype} and out "
-            f"{tuple(out.shape)} {out.dtype} must match"
-        )
-    dx = torch.empty_like(grad)
-    _build.launch(
-        _build.library("fused_act").fm_fused_leaky_relu_bwd, out,
-        grad.data_ptr(), out.data_ptr(), dx.data_ptr(), code,
-        out.numel(), float(negative_slope), float(scale),
-    )
-    fused_leaky_relu_bwd.launches += 1
-    return dx
-
-
 _fwd_op = _build.define_op(
     "fused_leaky_relu(Tensor x, Tensor? bias, float negative_slope, float scale) -> Tensor",
-    _launch_fwd, lambda x, bias, negative_slope, scale: torch.empty_like(x))
+    fused_leaky_relu_plain, lambda x, bias, negative_slope, scale: torch.empty_like(x))
 _bwd_op = _build.define_op(
     "fused_leaky_relu_bwd(Tensor grad, Tensor out, float negative_slope, float scale) -> Tensor",
-    _launch_bwd, lambda grad, out, negative_slope, scale: torch.empty_like(grad))
+    fused_leaky_relu_bwd_plain, lambda grad, out, negative_slope, scale: torch.empty_like(grad))
 
 
 def _channel_sum(dx: torch.Tensor) -> torch.Tensor:
@@ -188,6 +140,3 @@ def fused_leaky_relu_bwd(
     output; on a CUDA tensor it launches ``fm_fused_leaky_relu_bwd``."""
     return _FusedLeakyReLUBackwardFn.apply(grad, out, float(negative_slope), float(scale), False)
 
-
-fused_leaky_relu.launches = 0
-fused_leaky_relu_bwd.launches = 0

@@ -22,18 +22,14 @@ differentiable:
   (k-p0-1, H-2*OH+p0), an exact 2x upsample when H = 2*OH.
 
 Every launch goes through one operator, ``torch.ops.fm3dgan_torch.blur``,
-``upsample2x`` or ``downsample2x`` (``_build.define_op``), whose body is a
-``_launch_*`` helper: it runs the plain version on a CPU tensor (and under
-``plain_versions()``) and launches the kernel on a CUDA tensor or raises
-for a configuration it does not take; so the CPU runs the same autograd
-wiring as the card, and ``torch.export`` records the operators.  FIR
-kernels are host constants (sequences or numpy arrays), as the TPU kernels
-needed static taps; each distinct value becomes one cached
-``_build.HostTaps``, passed to an operator as ``float[]`` with its shape.
-blur, up2 and down2 go through their Function only where autograd records
-(an input that requires grad, grad mode on), and call the operator directly
-otherwise: the Function's host cost is larger than the kernel at the small
-shapes.
+``upsample2x`` or ``downsample2x`` (``_build.define_op``), whose CPU kernel
+is the plain version, so the CPU runs the same autograd wiring as the card,
+and ``torch.export`` records the operators.  FIR kernels are host constants,
+as the TPU kernels needed static taps, passed to an operator as ``float[]``
+with its shape (:class:`Taps`).  blur, up2 and down2 go through their
+Function only where autograd records (an input that requires grad, grad mode
+on), and call the operator directly otherwise: the Function's host cost is
+larger than the kernel at the small shapes.
 
 The blur kernel stages a tile of each plane in shared memory and sums the
 taps row by row, column by column, the plain version's order to the bit.
@@ -45,8 +41,7 @@ moved noise-dominated 256 px R1 gradients past their bar
 
 from __future__ import annotations
 
-import ctypes
-from typing import Dict, List, Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -54,6 +49,27 @@ import torch.nn.functional as F
 
 from fm3dgan_torch.ops import _build
 from fm3dgan_torch.precision import acc
+
+
+class Taps(NamedTuple):
+    """FIR taps as the operators take them: the float32 values in row-major
+    order, as Python floats, and their shape."""
+
+    values: Tuple[float, ...]
+    shape: Tuple[int, ...]
+
+    @property
+    def flipped(self) -> "Taps":
+        """The adjoint's taps: every axis reversed, which reverses the values."""
+        return Taps(self.values[::-1], self.shape)
+
+
+def fir_taps(kernel) -> Taps:
+    """``kernel`` (a sequence or array, or Taps) as :class:`Taps`."""
+    if isinstance(kernel, Taps):
+        return kernel
+    a = np.asarray(kernel, np.float32)
+    return Taps(tuple(a.ravel().tolist()), a.shape)
 
 
 def make_kernel(k: Sequence[float]) -> np.ndarray:
@@ -128,122 +144,6 @@ def downsample2x_plain(x: torch.Tensor, kernel_1d, pad) -> torch.Tensor:
     return upfirdn2d(x, np.outer(k, k), down=2, pad=pad)
 
 
-def phase_taps(k1d, p0: int) -> List[List[Tuple[int, float]]]:
-    """For output phase a in {0, 1} of a 2x upsample with pads (p0, k-1-p0):
-    the (input offset, weight) taps, out[2y + a] = sum w * x[y + offset]
-    (``_phase_taps(k1d, 2, p0)`` of the TPU kernel)."""
-    kf = np.asarray(k1d, np.float32)[::-1]  # true convolution
-    return [[((a - p0 + t) // 2, float(kf[t])) for t in range(kf.size) if (a - p0 + t) % 2 == 0]
-            for a in (0, 1)]
-
-
-class _Up2Phases(ctypes.Structure):
-    """``Up2Phases`` of csrc/upfirdn2d.cu: out[2y + a] = sum_{j < nt}
-    w[a][j] * x[y + base + (shift1 if a else 0) + j]."""
-
-    _fields_ = [("nt", ctypes.c_int), ("base", ctypes.c_int), ("shift1", ctypes.c_int),
-                ("w", (ctypes.c_float * 4) * 2)]
-
-
-_up2_tables: Dict[Tuple, Tuple[_Up2Phases, int]] = {}
-
-
-def up2_phases(taps: "_build.HostTaps", p0: int) -> Tuple[_Up2Phases, int]:
-    """K4's phase table for these taps and p0, and its address; built once.
-
-    Each phase's offsets are consecutive; phase 0 starts at ``base``, phase 1
-    at ``base + shift1`` with shift1 = 1 when p0 is even, else 0.  Shorter
-    phases are padded with zero weights to nt, an empty one (k = 1) wholly.
-    p0 may be negative: the down2 adjoint calls up2 with pads (k-p0-1, p0)."""
-    key = (taps.key, p0)
-    entry = _up2_tables.get(key)
-    if entry is None:
-        phases = phase_taps(taps.array, p0)
-        base = (phases[0] or phases[1])[0][0]
-        shift1 = phases[1][0][0] - base if phases[0] and phases[1] else 0
-        table = _Up2Phases(max(len(ph) for ph in phases), base, shift1)
-        for a, ph in enumerate(phases):
-            for j, (offset, w) in enumerate(ph):
-                assert offset == base + (shift1 if a else 0) + j, (phases, p0)
-                table.w[a][j] = w
-        assert 1 <= table.nt <= 4 and shift1 in (0, 1), (phases, p0)
-        entry = _up2_tables.setdefault(key, (table, ctypes.addressof(table)))
-    return entry
-
-
-class _Down2Params(ctypes.Structure):
-    """``Down2Params`` of csrc/upfirdn2d.cu: out[o] = sum_t w[t] * xpad[2o + t]
-    with w the flipped taps, pads (p0, p1)."""
-
-    _fields_ = [("k", ctypes.c_int), ("p0", ctypes.c_int), ("p1", ctypes.c_int),
-                ("w", ctypes.c_float * 8)]
-
-
-_down2_tables: Dict[Tuple, Tuple[_Down2Params, int]] = {}
-
-
-def down2_params(taps: "_build.HostTaps", p0: int, p1: int) -> Tuple[_Down2Params, int]:
-    """K5's taps (flipped) and pads, and their address; built once."""
-    key = (taps.key, p0, p1)
-    entry = _down2_tables.get(key)
-    if entry is None:
-        kf = taps.flipped.array
-        params = _Down2Params(kf.size, p0, p1)
-        params.w[:kf.size] = kf.tolist()
-        entry = _down2_tables.setdefault(key, (params, ctypes.addressof(params)))
-    return entry
-
-
-def _launch_blur(x: torch.Tensor, taps: "_build.HostTaps", p0: int, p1: int) -> torch.Tensor:
-    k = taps.array
-    if not _build.use_kernel(x):
-        return upfirdn2d(x, k, pad=(p0, p1))
-    code = _build.check_input(x, "blur")
-    if x.dim() != 4 or k.ndim != 2:
-        raise ValueError("blur takes an NCHW tensor and a 2-D kernel")
-    kh, kw = k.shape
-    n, c, h, w = x.shape
-    if not (1 <= kh <= 8 and 1 <= kw <= 8):
-        raise ValueError(f"blur kernel must be at most 8x8, got {k.shape}")
-    if not (0 <= p0 < min(kh, kw) and 0 <= p1 < min(kh, kw)):
-        raise ValueError(f"blur pads must satisfy 0 <= p < k, got {(p0, p1)}")
-    oh, ow = _blur_hw(h, w, kh, kw, p0, p1)
-    y = torch.empty((n, c, oh, ow), dtype=x.dtype, device=x.device)
-    _build.launch(_build.library("upfirdn2d").fm_blur, x, x.data_ptr(), y.data_ptr(),
-                  taps.address, code, n * c, h, w, kh, kw, p0, p1)
-    blur.launches += 1
-    return y
-
-
-def _launch_up2(x: torch.Tensor, taps: "_build.HostTaps", p0: int, p1: int) -> torch.Tensor:
-    if not _build.use_kernel(x):
-        return upsample2x_plain(x, taps.array, (p0, p1))
-    code = _build.check_input(x, "upsample2x")
-    if x.dim() != 4 or taps.array.size > 8:
-        raise ValueError("upsample2x takes an NCHW tensor and at most 8 taps")
-    n, c, h, w = x.shape
-    y = x.new_empty((n, c, 2 * h, 2 * w))
-    _build.launch(_build.library("upfirdn2d").fm_upsample2x, x, x.data_ptr(), y.data_ptr(),
-                  up2_phases(taps, p0)[1], code, n * c, h, w)
-    upsample2x.launches += 1
-    return y
-
-
-def _launch_down2(x: torch.Tensor, taps: "_build.HostTaps", p0: int, p1: int) -> torch.Tensor:
-    if not _build.use_kernel(x):
-        return downsample2x_plain(x, taps.array, (p0, p1))
-    code = _build.check_input(x, "downsample2x")
-    k = taps.array.size
-    if x.dim() != 4 or k > 8:
-        raise ValueError("downsample2x takes an NCHW tensor and at most 8 taps")
-    n, c, h, w = x.shape
-    y = x.new_empty((n, c) + _down2_hw(h, w, k, p0, p1))
-    _build.launch(_build.library("upfirdn2d").fm_downsample2x, x, x.data_ptr(), y.data_ptr(),
-                  down2_params(taps, p0, p1)[1], code, n * c, h, w)
-    downsample2x.launches += 1
-    return y
-
-
 def _blur_hw(h, w, kh: int, kw: int, p0: int, p1: int):
     oh, ow = h + p0 + p1 - kh + 1, w + p0 + p1 - kw + 1
     if oh <= 0 or ow <= 0:
@@ -257,8 +157,8 @@ def _down2_hw(h, w, k: int, p0: int, p1: int):
     return (h + p0 + p1 - k) // 2 + 1, (w + p0 + p1 - k) // 2 + 1
 
 
-# The operators: their bodies are the launches above, their fake versions
-# the same output arithmetic.
+# The operators: their CPU kernels are the plain versions, their fake
+# versions the same output arithmetic (their CUDA kernels: csrc/ops.cpp).
 
 def _blur_fake(x, taps, kh, kw, p0, p1):
     return x.new_empty((*x.shape[:2], *_blur_hw(x.shape[2], x.shape[3], kh, kw, p0, p1)))
@@ -274,63 +174,51 @@ def _down2_fake(x, taps, p0, p1):
 
 _blur_op = _build.define_op(
     "blur(Tensor x, float[] taps, int kh, int kw, int p0, int p1) -> Tensor",
-    lambda x, taps, kh, kw, p0, p1: _launch_blur(x, _build.op_taps(taps, (kh, kw)), p0, p1),
+    lambda x, taps, kh, kw, p0, p1: upfirdn2d(x, np.reshape(taps, (kh, kw)), pad=(p0, p1)),
     _blur_fake)
 _up2_op = _build.define_op(
     "upsample2x(Tensor x, float[] taps, int p0, int p1) -> Tensor",
-    lambda x, taps, p0, p1: _launch_up2(x, _build.op_taps(taps, (len(taps),)), p0, p1),
+    lambda x, taps, p0, p1: upsample2x_plain(x, taps, (p0, p1)),
     _up2_fake)
 _down2_op = _build.define_op(
     "downsample2x(Tensor x, float[] taps, int p0, int p1) -> Tensor",
-    lambda x, taps, p0, p1: _launch_down2(x, _build.op_taps(taps, (len(taps),)), p0, p1),
+    lambda x, taps, p0, p1: downsample2x_plain(x, taps, (p0, p1)),
     _down2_fake)
-
-
-def _call_blur(x, taps: "_build.HostTaps", p0: int, p1: int) -> torch.Tensor:
-    kh, kw = taps.array.shape
-    return _blur_op(x, taps.values, kh, kw, p0, p1)
-
-
-def _call_up2(x, taps: "_build.HostTaps", p0: int, p1: int) -> torch.Tensor:
-    return _up2_op(x, taps.values, p0, p1)
-
-
-def _call_down2(x, taps: "_build.HostTaps", p0: int, p1: int) -> torch.Tensor:
-    return _down2_op(x, taps.values, p0, p1)
 
 
 def _records_grad(x: torch.Tensor) -> bool:
     return x.requires_grad and torch.is_grad_enabled()
 
 
-def _blur(x, taps, p0, p1):
+def _blur(x, taps: Taps, p0, p1):
     if _records_grad(x):
         return _BlurFn.apply(x, taps, p0, p1)
-    return _call_blur(x, taps, p0, p1)
+    kh, kw = taps.shape
+    return _blur_op(x, taps.values, kh, kw, p0, p1)
 
 
-def _up2(x, taps, p0, p1):
+def _up2(x, taps: Taps, p0, p1):
     if _records_grad(x):
         return _Upsample2xFn.apply(x, taps, p0, p1)
-    return _call_up2(x, taps, p0, p1)
+    return _up2_op(x, taps.values, p0, p1)
 
 
-def _down2(x, taps, p0, p1):
+def _down2(x, taps: Taps, p0, p1):
     if _records_grad(x):
         return _Downsample2xFn.apply(x, taps, p0, p1)
-    return _call_down2(x, taps, p0, p1)
+    return _down2_op(x, taps.values, p0, p1)
 
 
 class _BlurFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, taps, p0, p1):
         ctx.taps, ctx.pads = taps, (p0, p1)
-        return _call_blur(x, taps, p0, p1)
+        return _blur(x, taps, p0, p1)
 
     @staticmethod
     def backward(ctx, grad):
         taps = ctx.taps
-        kh, kw = taps.array.shape
+        kh, kw = taps.shape
         if kh != kw:
             raise NotImplementedError("the blur adjoint takes square kernels (_blur_bwd)")
         p0, p1 = ctx.pads
@@ -341,20 +229,20 @@ class _Upsample2xFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, taps, p0, p1):
         ctx.taps, ctx.p0 = taps, p0
-        return _call_up2(x, taps, p0, p1)
+        return _up2(x, taps, p0, p1)
 
     @staticmethod
     def backward(ctx, grad):
         taps, p0 = ctx.taps, ctx.p0
         # _resample_bwd with up=2, down=1, OH = 2H: g1 = p0 - 1.
-        return _down2(grad.contiguous(), taps.flipped, taps.array.size - p0 - 1, p0 - 1), None, None, None
+        return _down2(grad.contiguous(), taps.flipped, len(taps.values) - p0 - 1, p0 - 1), None, None, None
 
 
 class _Downsample2xFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, taps, p0, p1):
         ctx.taps, ctx.p0, ctx.in_hw = taps, p0, tuple(x.shape[2:])
-        return _call_down2(x, taps, p0, p1)
+        return _down2(x, taps, p0, p1)
 
     @staticmethod
     def backward(ctx, grad):
@@ -366,7 +254,7 @@ class _Downsample2xFn(torch.autograd.Function):
                 f"{(h, w)} -> {(oh, ow)}"
             )
         # _resample_bwd with up=1, down=2: g0 = k-p0-1, g1 = H-2*OH+p0 = p0.
-        return _up2(grad.contiguous(), taps.flipped, taps.array.size - p0 - 1, p0), None, None, None
+        return _up2(grad.contiguous(), taps.flipped, len(taps.values) - p0 - 1, p0), None, None, None
 
 
 def blur(x: torch.Tensor, kernel, pad, upsample_factor: int = 1) -> torch.Tensor:
@@ -377,7 +265,7 @@ def blur(x: torch.Tensor, kernel, pad, upsample_factor: int = 1) -> torch.Tensor
     kernel <= 8x8, 0 <= p < min(kh, kw))."""
     if upsample_factor > 1:
         kernel = np.asarray(kernel, np.float32) * (upsample_factor**2)
-    return _blur(x, _build.host_taps(kernel), int(pad[0]), int(pad[1]))
+    return _blur(x, fir_taps(kernel), int(pad[0]), int(pad[1]))
 
 
 def upsample2x(x: torch.Tensor, kernel_1d, pad) -> torch.Tensor:
@@ -386,12 +274,12 @@ def upsample2x(x: torch.Tensor, kernel_1d, pad) -> torch.Tensor:
     Replaces ``_updown_pallas`` mode up2 (and the XLA ``_up2_polyphase_k4``
     at the ToRGB skip); on a CUDA tensor it launches ``fm_upsample2x``
     (any C, k <= 8).  Its backward is :func:`downsample2x`."""
-    taps = _build.host_taps(kernel_1d)
-    k = taps.array
+    taps = fir_taps(kernel_1d)
+    k = len(taps.values)
     p0, p1 = int(pad[0]), int(pad[1])
-    if k.ndim != 1 or p0 + p1 != k.size - 1 or p0 < 0 or p1 < 0:
+    if len(taps.shape) != 1 or p0 + p1 != k - 1 or p0 < 0 or p1 < 0:
         raise ValueError(
-            f"upsample2x takes 1-D taps and pads p0 + p1 = k - 1, got k={k.shape}, "
+            f"upsample2x takes 1-D taps and pads p0 + p1 = k - 1, got k={taps.shape}, "
             f"pad={(p0, p1)}"
         )
     return _up2(x, taps, p0, p1)
@@ -404,15 +292,9 @@ def downsample2x(x: torch.Tensor, kernel_1d, pad) -> torch.Tensor:
     Replaces ``_updown_pallas`` mode down2, the counterpart of
     ``resample2x_pallas(x, k, k, 1, 2, p0, p1)``; on a CUDA tensor it launches
     ``fm_downsample2x`` (any C, k <= 8).  Its backward is :func:`upsample2x`."""
-    taps = _build.host_taps(kernel_1d)
-    k = taps.array
-    if k.ndim != 1:
-        raise ValueError(f"downsample2x takes 1-D taps, got {k.shape}")
+    taps = fir_taps(kernel_1d)
+    if len(taps.shape) != 1:
+        raise ValueError(f"downsample2x takes 1-D taps, got {taps.shape}")
     p0, p1 = int(pad[0]), int(pad[1])
-    _down2_hw(x.shape[2], x.shape[3], k.size, p0, p1)
+    _down2_hw(x.shape[2], x.shape[3], len(taps.values), p0, p1)
     return _down2(x, taps, p0, p1)
-
-
-blur.launches = 0
-upsample2x.launches = 0
-downsample2x.launches = 0

@@ -19,12 +19,6 @@ one call (A, B, B, A) to compare their host paths on one card.
   clock around steps ending in a synchronize.
 
 Prints one JSON object; exits non-zero without a card.
-
-``--dispatch`` measures instead, on the CPU and without a card, what one
-call of a trivial operator costs on the host through
-``torch.library.custom_op`` and through ``torch.library.Library`` with a
-kernel per device key (the route ``ops._build.define_op`` takes), against
-calling its body directly.
 """
 
 from __future__ import annotations
@@ -53,49 +47,13 @@ def _timed(fn, calls: int):
     return host / calls * 1e6, start.elapsed_time(end) / calls * 1e3
 
 
-def dispatch_costs(calls: int) -> dict:
-    """Host µs per call of one trivial body (a clone taking a ``float[]``
-    of 16 taps), called directly, as a ``custom_op`` and as a ``Library``
-    operator with CPU and CUDA kernels."""
-    x = torch.randn(2, 3, 4, 4)
-    taps = [0.0625] * 16
-
-    def body(x, taps, p0, p1):
-        return x.clone()
-
-    schema = "(Tensor x, float[] taps, int p0, int p1) -> Tensor"
-    lib = torch.library.Library("launch_overhead_probe", "DEF")
-    lib.define("probe" + schema)
-    for key in ("CPU", "CUDA"):
-        lib.impl("probe", body, key)
-    custom = torch.library.custom_op("launch_overhead_probe::custom", body, mutates_args=(),
-                                     schema=schema)
-    fns = dict(direct=body, custom_op=custom,
-               library=torch.ops.launch_overhead_probe.probe.default)
-    out = {}
-    for name, fn in fns.items():
-        for _ in range(1000):
-            fn(x, taps, 1, 1)
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn(x, taps, 1, 1)
-        out[f"{name}_us"] = (time.perf_counter() - t0) / calls * 1e6
-    return out
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--label", default="")
     ap.add_argument("--calls", type=int, default=2000)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--out", default=None, help="also append the object to this JSON-lines file")
-    ap.add_argument("--dispatch", action="store_true",
-                    help="time the operator routes' host dispatch on the CPU instead")
     args = ap.parse_args(argv)
-    if args.dispatch:
-        print(json.dumps(dict(label=args.label, where="cpu", calls=args.calls * 10,
-                              **dispatch_costs(args.calls * 10))))
-        return 0
     if not torch.cuda.is_available():
         print("launch_overhead: no CUDA device", file=sys.stderr)
         return 1

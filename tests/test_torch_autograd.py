@@ -12,7 +12,6 @@ plain version.
 
 import math
 import threading
-import types
 
 import jax
 import jax.numpy as jnp
@@ -220,17 +219,29 @@ SECOND_ORDER = {
 
 def test_plain_versions_switch_holds_on_every_thread():
     """autograd runs the backward of CUDA nodes on a thread of its own, so
-    ``plain_versions()`` must reach the backward Functions there too."""
-    on_card = types.SimpleNamespace(device=torch.device("cuda"))
+    ``plain_versions()`` must reach the operators' CUDA kernels there too:
+    inside the block (nested once), the CUDA dispatch key runs the plain
+    version, called here through ``redispatch`` on a CPU tensor, from the
+    block's thread and from another; after it, the key's kernel is again
+    the library's where it is loaded, and none is registered where not."""
+    x = torch.from_numpy(_x((1, 3, 8, 8), 5))
+    cuda = torch._C.DispatchKeySet(torch._C.DispatchKey.CUDA)
+    run = lambda: seen.append(torch.ops.fm3dgan_torch.upsample2x.default.redispatch(  # noqa: E731
+        cuda, x, TAPS, 2, 1))
     seen = []
-    probe = lambda: seen.append(_build.use_kernel(on_card))  # noqa: E731
     with ops.plain_versions():
-        worker = threading.Thread(target=probe)
+        with ops.plain_versions():
+            run()
+        worker = threading.Thread(target=run)
         worker.start()
         worker.join()
-        probe()
-    probe()
-    assert seen == [False, False, True]
+        assert ops.plain_active()
+    assert not ops.plain_active() and len(seen) == 2
+    for got in seen:
+        torch.testing.assert_close(got, ops.upsample2x_plain(x, TAPS, (2, 1)), rtol=0, atol=0)
+    for name in _build.PLAIN:
+        assert torch._C._dispatch_has_kernel_for_dispatch_key(
+            f"fm3dgan_torch::{name}", "CUDA") == _build.loaded()
 
 
 @pytest.mark.parametrize("name", sorted(SECOND_ORDER))

@@ -137,23 +137,26 @@ def test_data_parallel_on_cuda_without_a_card_raises(monkeypatch):
 
 
 def test_a_failed_build_reports_its_own_log(tmp_path, monkeypatch):
-    """Each build process writes its nvcc log aside (``{library}.{pid}.tmp.log``)
-    and renames it to ``{name}.log`` when nvcc ends, so data-parallel ranks
-    that build at once do not truncate the log a failure reports."""
+    """Each build process writes its compilers' logs aside
+    (``{library}.{pid}.tmp.{source}.o.log``) and renames them to
+    ``{source}.log`` when the compilers end, so data-parallel ranks that
+    build at once do not truncate the logs a failure reports."""
     import stat
 
     from fm3dgan_torch.ops import _build
 
-    nvcc = tmp_path / "nvcc"
-    nvcc.write_text("#!/bin/sh\necho \"fake nvcc of process $PPID\"\nexit 1\n")
-    nvcc.chmod(nvcc.stat().st_mode | stat.S_IXUSR)
+    for tool in ("nvcc", "g++"):
+        fake = tmp_path / tool
+        fake.write_text(f"#!/bin/sh\necho \"fake {tool} of process $PPID\"\nexit 1\n")
+        fake.chmod(fake.stat().st_mode | stat.S_IXUSR)
     build_dir = tmp_path / "kernels"
     monkeypatch.setattr(_build, "BUILD_DIR", str(build_dir))
-    monkeypatch.setattr(_build, "find_nvcc", lambda: str(nvcc))
-    monkeypatch.setattr(_build, "_libs", {})
-    with pytest.raises(RuntimeError, match=f"fake nvcc of process {os.getpid()}"):
+    monkeypatch.setattr(_build, "find_tool", lambda name: str(tmp_path / name))
+    monkeypatch.setattr(_build, "_loaded", None)
+    with pytest.raises(RuntimeError, match=f"fake nvcc of process {os.getpid()}") as failure:
         _build.build_all()
-    assert sorted(os.listdir(build_dir)) == sorted(f"{n}.log" for n in _build.SOURCES)
+    assert f"fake g++ of process {os.getpid()}" in str(failure.value)
+    assert sorted(os.listdir(build_dir)) == sorted(f"{s.split('.')[0]}.log" for s in _build.SOURCES)
 
 
 def test_global_batch_norm_on_encoder_activations(tmp_path):

@@ -5,9 +5,11 @@ On a CPU tensor the kernel wrappers run their plain versions;
 tests/test_torch_cuda.py holds the CUDA kernels against those on the card.
 """
 
-import ctypes
 import importlib
 import math
+import os
+import shutil
+import subprocess
 
 import jax.numpy as jnp
 import numpy as np
@@ -236,41 +238,96 @@ def test_resample2x_edge_pads_match_pallas(k):
             assert_close(got, want, what=f"down2 vs pallas k={k} {pad}", **TOL)
 
 
-def test_host_taps_cache():
-    """One HostTaps per distinct value, whatever container carries it; the
-    flipped and the other taps are other objects; the ctypes array holds
-    the float32 bits of the taps."""
-    k = [0.1, 0.7, 0.3, -0.2]
-    taps = _build.host_taps(k)
-    assert _build.host_taps(tuple(k)) is taps
-    assert _build.host_taps(np.asarray(k, np.float64)) is taps
-    assert _build.host_taps(taps) is taps
-    assert taps.flipped is not taps and taps.flipped is _build.host_taps(k[::-1])
-    assert taps.flipped.flipped is taps
-    assert _build.host_taps([0.1, 0.7, 0.3, -0.25]) is not taps
-    assert _build.host_taps(np.outer(k, k)) is not _build.host_taps(np.outer(k, k).ravel())
-    want = np.float32(k).view(np.uint32)
-    np.testing.assert_array_equal(np.frombuffer(taps.c_array, np.float32).view(np.uint32), want)
-    np.testing.assert_array_equal(taps.array.view(np.uint32), want)
-    assert taps.address == ctypes.addressof(taps.c_array)
-    assert not taps.array.flags.writeable
+def test_library_name_follows_sources_flags_and_torch(tmp_path, monkeypatch):
+    """The kernels' library is named by a hash of every file under
+    ``csrc/``, the flags, ``torch.__version__`` and torch's C++ ABI: an
+    edited source, another flag or another torch builds anew, and nothing
+    else (a touched file, a second call) does."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    name = _build.lib_path()
+    assert os.path.dirname(name) == _build.BUILD_DIR and name.endswith(".so")
+    os.utime(csrc / "ops.cpp", (0, 0))
+    assert _build.lib_path() == name
+    names = set()
+    for src in sorted(os.listdir(csrc)):
+        text = (csrc / src).read_bytes()
+        (csrc / src).write_bytes(text + b"\n")
+        names.add(_build.lib_path())
+        (csrc / src).write_bytes(text)
+    assert len(names) == len(os.listdir(csrc)) == 4 and name not in names
+    for attr, value in (("NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",)),
+                        ("CXX_FLAGS", _build.CXX_FLAGS + ("-g",))):
+        with monkeypatch.context() as m:
+            m.setattr(_build, attr, value)
+            names.add(_build.lib_path())
+    with monkeypatch.context() as m:
+        m.setattr(torch, "__version__", torch.__version__ + ".other")
+        names.add(_build.lib_path())
+    with monkeypatch.context() as m:
+        m.setattr(torch._C, "_GLIBCXX_USE_CXX11_ABI", not torch._C._GLIBCXX_USE_CXX11_ABI)
+        names.add(_build.lib_path())
+    assert len(names) == 8 and name not in names
+    assert _build.lib_path() == name
+
+
+# K4's table as ``csrc/kernels.h`` builds it, printed by a host program:
+# "nt base shift1" and the 2 x 4 weights, exact (``%a``).
+PHASE_PRINTER = r"""
+#include <cstdio>
+#include <cstdlib>
+#include "kernels.h"
+int main(int argc, char** argv) {
+  const int p0 = atoi(argv[1]), k = argc - 2;
+  double taps[kMaxTaps];
+  for (int i = 0; i < k; ++i) taps[i] = strtod(argv[2 + i], nullptr);
+  Up2Phases ph;
+  if (const char* bad = up2_phases(taps, k, p0, ph)) {
+    puts(bad);
+    return 1;
+  }
+  printf("%d %d %d", ph.nt, ph.base, ph.shift1);
+  for (int a = 0; a < 2; ++a) {
+    for (int j = 0; j < 4; ++j) printf(" %a", ph.w[a][j]);
+  }
+  puts("");
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def phase_printer(tmp_path_factory):
+    """``PHASE_PRINTER`` compiled with g++ against ``csrc/kernels.h``, which
+    includes no CUDA or PyTorch header."""
+    root = tmp_path_factory.mktemp("phase_printer")
+    (root / "main.cpp").write_text(PHASE_PRINTER)
+    exe = str(root / "phases")
+    subprocess.run(["g++", "-std=c++17", "-O1", "-I", _build.CSRC, "-o", exe, str(root / "main.cpp")],
+                   check=True)
+
+    def table(taps, p0):
+        out = subprocess.run([exe, str(p0), *(float(t).hex() for t in taps)], check=True,
+                             capture_output=True, text=True).stdout.split()
+        return int(out[0]), int(out[1]), int(out[2]), [[float.fromhex(w) for w in out[3 + 4 * a:7 + 4 * a]]
+                                                       for a in (0, 1)]
+
+    return table
 
 
 @pytest.mark.parametrize("k", range(1, 9))
-def test_up2_phase_table_matches_pallas_phase_taps(k):
+def test_up2_phase_table_matches_pallas_phase_taps(k, phase_printer):
     """K4's phase table (offsets from ``base``, phase 1 shifted by
     ``shift1``, zero-padded to ``nt``) holds the taps of ``_phase_taps``,
     and its window is at most ceil(k/2) + 1 inputs wide."""
-    taps = edge_taps(k)
+    taps = np.float32(edge_taps(k))
     for p0 in range(k):
         want = _phase_taps(tuple(float(v) for v in taps), 2, p0)
-        assert port_upfirdn.phase_taps(taps, p0) == want
-        table, address = port_upfirdn.up2_phases(_build.host_taps(taps), p0)
-        assert port_upfirdn.up2_phases(_build.host_taps(taps), p0)[0] is table
-        assert address == ctypes.addressof(table)
-        assert table.nt == (k + 1) // 2 and table.nt + table.shift1 <= (k + 1) // 2 + 1
+        nt, base, shift1, w = phase_printer(taps, p0)
+        assert nt == (k + 1) // 2 and nt + shift1 <= (k + 1) // 2 + 1
         for a, phase in enumerate(want):
-            start = table.base + (table.shift1 if a else 0)
-            got = [(start + j, table.w[a][j]) for j in range(len(phase))]
-            assert got == [(o, float(np.float32(w))) for o, w in phase], (k, p0, a)
-            assert all(table.w[a][j] == 0.0 for j in range(len(phase), 4))
+            start = base + (shift1 if a else 0)
+            got = [(start + j, w[a][j]) for j in range(len(phase))]
+            assert got == [(o, float(np.float32(v))) for o, v in phase], (k, p0, a)
+            assert all(w[a][j] == 0.0 for j in range(len(phase), 4))
