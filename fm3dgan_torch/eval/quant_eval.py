@@ -10,7 +10,9 @@ Counterpart of ``fm3dgan/eval/quant_eval.py``:
 
 Eval batches are NHWC arrays in [-1, 1], as the JAX functions take them, and
 ``forward_fn(photo, render)`` returns the NHWC edited image, as
-``forward_3_encoder`` does.  The scorers run NCHW on the output's device:
+``forward_3_encoder`` does, on its inputs' device (host inputs give a host
+image, so a caller sends them to the card first).  The scorers run NCHW on
+the output's device:
 ``face_rec_fn`` ([N, 1, S, S] grayscale -> [N, 512]), ``lpips_fn`` (a, b ->
 [N]), ``inception_fn`` (images -> [N, 2048]) and ``heatmap_landmark_fn``
 (images -> (heatmaps, landmarks [N, 68, 2])).  Per-image scores are taken on

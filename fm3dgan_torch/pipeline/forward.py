@@ -8,7 +8,10 @@ Counterpart of ``fm3dgan/pipeline/forward.py``:
   the encoded tensor as its input.  On a card the batch forward is replayed
   from a CUDA graph per input signature from its second call on
   (``pipeline/graphs.py``), which holds the independent encoders and pSp's
-  style blocks as parallel branches (``utils/streams.py``).
+  style blocks as parallel branches (``utils/streams.py``).  The image (and
+  the latent) comes back on the device the inputs came from: with the inputs
+  on the host and the bundle on a card, both ways go through the bundle's
+  pinned staging buffers (``pipeline/staging.py``).
 * ``forward_2_encoder``: the 2-encoder scheme, a tensor encoder and a
   modulation encoder (``TwoEncoderModels``), without co-modulation or in one
   of the ``CO_MODULATION_MODE``s; ``encode_2_encoder`` is its encoder half.
@@ -22,6 +25,7 @@ and ``fm3dgan_torch.train.steps_2encoder.forward_full``, and
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Dict, Optional, Sequence, Tuple
@@ -32,7 +36,7 @@ import torch.nn as nn
 from fm3dgan_torch.models.generator import Generator
 from fm3dgan_torch.models.psp_encoder import GradualStyleEncoder
 from fm3dgan_torch.models.resnet_encoder import ResNet18Encoder
-from fm3dgan_torch.pipeline import graphs
+from fm3dgan_torch.pipeline import graphs, staging
 from fm3dgan_torch.utils import streams
 from fm3dgan_torch.utils.spans import span
 
@@ -54,7 +58,7 @@ def resolve_device(device=None) -> torch.device:
 
 class FaceManipulator(nn.Module):
     """Module bundle for the 3-encoder manipulation pipeline; ``graphs``
-    holds its forward's CUDA graphs."""
+    holds its forward's CUDA graphs, ``staging`` its pinned buffers."""
 
     def __init__(self, generator: Generator, e_tsr: ResNet18Encoder, e_w: ResNet18Encoder,
                  e_w_plus: GradualStyleEncoder, input_size: int = 256):
@@ -65,6 +69,7 @@ class FaceManipulator(nn.Module):
         self.e_w_plus = e_w_plus
         self.input_size = input_size
         self.graphs = graphs.EditGraphs()
+        self.staging = staging.Staging()
 
     @classmethod
     def create(
@@ -150,6 +155,15 @@ def _to_device(photo: torch.Tensor, render: torch.Tensor, device):
                 render.to(device).permute(0, 3, 1, 2).contiguous())
 
 
+def _staging(models, photo: torch.Tensor, render: torch.Tensor) -> Optional[staging.Staging]:
+    """The bundle's staging where this call goes through it, else None."""
+    return models.staging if staging.engaged(models, photo, render) else None
+
+
+def _held(stage: Optional[staging.Staging]):
+    return contextlib.nullcontext() if stage is None else stage.lock
+
+
 def _edit(models: FaceManipulator, photo: torch.Tensor, render: torch.Tensor, tsr_encode: str,
           sliced_layer: Optional[Sequence[int]], use_tanh: bool,
           noise_generator: Optional[torch.Generator]) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -199,20 +213,29 @@ def forward_3_encoder(
 
     Noise comes from ``noise_generator`` when one is given, else from the
     generator's fixed buffers.  Returns the image, or (image, latent) with
-    ``return_latent``.  On a card, a call that repeats an earlier call's
-    signature replays its CUDA graph and returns new tensors
-    (``pipeline/graphs.py``); the rest run eagerly."""
+    ``return_latent``, on the inputs' device: host inputs to a bundle on a
+    card come back as host tensors (``pipeline/staging.py``).  On a card, a
+    call that repeats an earlier call's signature replays its CUDA graph and
+    returns new tensors (``pipeline/graphs.py``); the rest run eagerly."""
     if tsr_encode not in MODULATION_ENCODING:
         raise ValueError(f"tsr_encode must be one of {MODULATION_ENCODING}")
 
     def region(p, r):
         return _edit(models, p, r, tsr_encode, sliced_layer, use_tanh, noise_generator)
 
-    with span("fm3d.edit.forward"), torch.inference_mode():
+    stage = _staging(models, photo, render)
+    with span("fm3d.edit.forward"), torch.inference_mode(), _held(stage):
+        if stage is not None:
+            photo, render = stage.to_device(models.device, photo, render)
+        take = graphs.clones if stage is None else stage.to_host
         out = graphs.replayed(models, photo, render, region, noise_generator=noise_generator,
                               tsr_encode=tsr_encode, sliced_layer=sliced_layer,
-                              use_tanh=use_tanh, return_latent=return_latent)
-        image, latent_out = region(photo, render) if out is None else out
+                              use_tanh=use_tanh, return_latent=return_latent, take=take)
+        if out is None:
+            out = region(photo, render)
+            if stage is not None:
+                out = stage.to_host(out[0], out[1] if return_latent else None)
+        image, latent_out = out
     if return_latent:
         return image, latent_out
     return image
@@ -236,6 +259,7 @@ class TwoEncoderModels(nn.Module):
         self.modulation_encoder = modulation_encoder
         self.co_modulation = co_modulation
         self.input_size = input_size
+        self.staging = staging.Staging()
 
     @classmethod
     def create(
@@ -357,10 +381,15 @@ def forward_2_encoder(
 ) -> torch.Tensor:
     """(photo, render) [N, H, W, 3] in [-1, 1] -> edited image [N, H, W, 3]
     through the 2-encoder scheme of ``models.co_modulation``
-    (:func:`encode_2_encoder`).  Noise comes from ``noise_generator`` when
-    one is given, else from the generator's fixed buffers."""
+    (:func:`encode_2_encoder`), on the inputs' device as
+    :func:`forward_3_encoder` returns it.  Noise comes from
+    ``noise_generator`` when one is given, else from the generator's fixed
+    buffers."""
     device = models.device
-    with span("fm3d.edit.forward"), torch.inference_mode():
+    stage = _staging(models, photo, render)
+    with span("fm3d.edit.forward"), torch.inference_mode(), _held(stage):
+        if stage is not None:
+            photo, render = stage.to_device(device, photo, render)
         photo, render = _to_device(photo, render, device)
         latent, tensor = encode_2_encoder(models, photo, render, mod_encode=mod_encode,
                                           sliced_layer=sliced_layer)
@@ -374,4 +403,5 @@ def forward_2_encoder(
             )
         if use_tanh:
             image = torch.tanh(image)
-        return image.permute(0, 2, 3, 1).contiguous()
+        image = image.permute(0, 2, 3, 1).contiguous()
+        return image if stage is None else stage.to_host(image)[0]

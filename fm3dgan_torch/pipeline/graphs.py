@@ -13,8 +13,10 @@ NHWC inputs on the device to the NHWC image and the latent, and replays it:
   pSp's style blocks beside the rest of pSp, all joined before G; the same
   kernels as the eager forward, which runs them one after another;
 * a replay copies the caller's photo and render into the graph's static
-  inputs, replays, and returns clones of the static outputs, so the next
-  request never overwrites a caller's tensor;
+  inputs, replays, and takes the static outputs: clones on the card, or,
+  for a call from the host, copies on the host made straight from them
+  (``pipeline/staging.py``), so the next request never overwrites a
+  caller's tensor;
 * a graph is valid while every parameter and buffer of the bundle sits at
   the address it had at capture.  A move (``.to()``,
   ``load_state_dict(assign=True)``, ``torch.func.functional_call``) drops
@@ -58,12 +60,21 @@ MAX_BATCH = 4
 # they set up what lazy initialisation the capture stream would otherwise do.
 WARMUP_CALLS = 2
 
-# Calls by route, and the side branches forked while capturing (16 a
-# 3-encoder signature), read by the tests and chip_smoke.py.
+# Calls by route, the side branches forked while capturing (16 a 3-encoder
+# signature), and the calls staged through pinned memory with the bytes they
+# moved both ways (pipeline/staging.py), read by the tests and chip_smoke.py.
 STATS: Dict[str, Any] = {"eager": {}, "captures": 0, "replays": 0, "invalidations": 0,
-                         "branches": 0}
+                         "branches": 0, "staged": 0, "staged_bytes": 0}
 
 Region = Callable[[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
+# (image, latent or None) -> what the call returns.
+Take = Callable[[torch.Tensor, Optional[torch.Tensor]], Tuple[torch.Tensor, Optional[torch.Tensor]]]
+
+
+def clones(image: torch.Tensor,
+           latent: Optional[torch.Tensor]) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """A replay's outputs as new tensors on the card."""
+    return image.clone(), None if latent is None else latent.clone()
 
 
 def count_eager(reason: str) -> None:
@@ -132,22 +143,22 @@ class Layout:
 
 class Graph:
     """One captured forward: its static inputs and outputs, and an event
-    after its last replay's clones."""
+    after its last replay's outputs were taken."""
 
     def __init__(self, graph: torch.cuda.CUDAGraph, inputs, outputs):
         self.graph, self.inputs, self.outputs = graph, inputs, outputs
         self.done = torch.cuda.Event()
 
-    def replay(self, photo: torch.Tensor, render: torch.Tensor,
-               return_latent: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    def replay(self, photo: torch.Tensor, render: torch.Tensor, return_latent: bool,
+               take: Take = clones) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         stream = torch.cuda.current_stream()
-        # A replay from another stream waits until the last one's clones are made.
+        # A replay from another stream waits until the last one's outputs are taken.
         stream.wait_event(self.done)
         self.inputs[0].copy_(photo)
         self.inputs[1].copy_(render)
         self.graph.replay()
         image, latent = self.outputs
-        out = (image.clone(), latent.clone() if return_latent else None)
+        out = take(image, latent if return_latent else None)
         self.done.record(stream)
         return out
 
@@ -188,11 +199,11 @@ class EditGraphs:
         return EditGraphs()
 
     def run(self, models: torch.nn.Module, photo: torch.Tensor, render: torch.Tensor,
-            key: Tuple, return_latent: bool,
-            region: Region) -> Optional[Tuple[torch.Tensor, Optional[torch.Tensor]]]:
-        """(image, latent or None) from the graph of ``key``, captured on
-        this call if it is the signature's second; None where the call is to
-        run eagerly (counted)."""
+            key: Tuple, return_latent: bool, region: Region,
+            take: Take = clones) -> Optional[Tuple[torch.Tensor, Optional[torch.Tensor]]]:
+        """``take``(image, latent or None) of the graph of ``key``, captured
+        on this call if it is the signature's second; None where the call is
+        to run eagerly (counted)."""
         with self.lock:
             if self.layout is None or not self.layout.current(models):
                 self.layout = Layout(models)
@@ -224,20 +235,21 @@ class EditGraphs:
             else:
                 self.graphs.move_to_end(key)
             with span("fm3d.edit.replay"):
-                out = graph.replay(photo, render, return_latent)
+                out = graph.replay(photo, render, return_latent, take)
             STATS["replays"] += 1
             return out
 
 
 def replayed(models, photo: torch.Tensor, render: torch.Tensor, region: Region, *,
              noise_generator: Optional[torch.Generator], tsr_encode: str,
-             sliced_layer: Optional[Sequence[int]], use_tanh: bool,
-             return_latent: bool) -> Optional[Tuple[torch.Tensor, Optional[torch.Tensor]]]:
-    """``region(photo, render)``'s (image, latent or None) from a replay, or
-    None where the call is to run ``region`` eagerly (counted by reason)."""
+             sliced_layer: Optional[Sequence[int]], use_tanh: bool, return_latent: bool,
+             take: Take = clones) -> Optional[Tuple[torch.Tensor, Optional[torch.Tensor]]]:
+    """``region(photo, render)``'s (image, latent or None) from a replay,
+    through ``take``, or None where the call is to run ``region`` eagerly
+    (counted by reason)."""
     reason = eager_reason(models, photo, render, noise_generator)
     if reason is not None:
         count_eager(reason)
         return None
     key = signature(photo, render, tsr_encode, sliced_layer, use_tanh, return_latent)
-    return models.graphs.run(models, photo, render, key, return_latent, region)
+    return models.graphs.run(models, photo, render, key, return_latent, region, take)

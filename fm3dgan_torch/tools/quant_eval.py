@@ -65,8 +65,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     sliced = tuple(meta["sliced_layer"]) if meta.get("sliced_layer") else None
 
     def forward_fn(photo, render):
-        photo = torch.as_tensor(photo)
-        img = forward_3_encoder(models, photo, torch.as_tensor(render),
+        # On the bundle's device, so that the image stays there for the scorers.
+        photo = torch.as_tensor(photo).to(device)
+        img = forward_3_encoder(models, photo, torch.as_tensor(render).to(device),
                                 tsr_encode=meta["tsr_encode"], sliced_layer=sliced,
                                 use_tanh=meta["use_tanh"]).float()
         if img.shape[1] != photo.shape[1]:

@@ -30,9 +30,13 @@ the trace's readers take for convolutions and for the port's kernels.
                                   (both only while a process group is active)
     fm3d.loss.lpips / .arcface    the frozen loss networks' calls
     fm3d.edit.forward             forward_3_encoder / forward_2_encoder
-    fm3d.edit.to_device           their inputs' copies to the device and permutes
+    fm3d.edit.to_device           their inputs' copies to the device (through pinned
+                                  buffers for host inputs) and permutes
+    fm3d.edit.to_host             the image's and the latent's copy out to the host, for
+                                  host inputs: chunks through pinned buffers
     fm3d.edit.capture             forward_3_encoder's warm-up and capture of a CUDA graph
     fm3d.edit.replay              its copies in, the graph's replay and the outputs' clones
+                                  or copy out
 """
 
 from __future__ import annotations

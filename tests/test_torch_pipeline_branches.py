@@ -332,9 +332,12 @@ def cuda_device(monkeypatch):
 
 
 def _eager(m, photo, render, **opts):
+    """The eager forward's image and latent, on the host, where a call with
+    host inputs returns them."""
     with torch.inference_mode():
-        return _edit(m, photo, render, opts.get("tsr_encode", "Render Image"),
-                     opts.get("sliced_layer"), opts.get("use_tanh", False), None)
+        out = _edit(m, photo, render, opts.get("tsr_encode", "Render Image"),
+                    opts.get("sliced_layer"), opts.get("use_tanh", False), None)
+    return tuple(t.cpu() for t in out)
 
 
 @pytest.mark.gpu
